@@ -14,8 +14,17 @@ Phases, each printing a line:
      Detector.__call__ and Detector.detect_pairs on a batch of BATCH_SIZE
      pairs; the kernel launch counters are reset before and read after;
      the tracks are held against the same run with the plain correlation.
-The line before the last is the kernels JSON; the last line is the device
-JSON. Any failed check raises, so the script exits non-zero.
+  5. train: full-width joint training steps (the same configuration, the
+     package's seeded init, synthetic frame pairs at INPUT_SHAPE): one
+     warm-up step, then
+     timed steps with the launch counters reset before and read after;
+     finite losses, frozen stages bitwise unchanged, the track loss's
+     gradients with respect to c4 and c5 held against the plain
+     correlation, and one step's device time by stage.
+The kernels phase also holds the backward kernels (corr_bwd_fm0,
+corr_bwd_fm1) against autograd through the plain version. The line before
+the last is the kernels JSON; the last line is the device JSON. Any failed
+check raises, so the script exits non-zero.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -90,9 +99,12 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def corr_bound_ms(b, h, w, c, d_max, itemsize, f32_math):
-    """least time for one correlation forward: each input read once and the
-    (2d+1)^2 f32 planes written once, against the multiply-adds of the
-    (2d)^2 planes that are not always zero (peak of the input's type)."""
+    """least time for one correlation kernel, forward or one backward map:
+    two (B, H, W, C) maps and the (2d+1)^2 f32 planes each move once (the
+    forward reads both maps and writes the planes; a backward kernel reads
+    the planes' cotangent and the other map and writes one gradient),
+    against the multiply-adds of the (2d)^2 planes that are not always zero
+    (peak of the input's type)."""
     k2 = (2 * d_max + 1) ** 2
     nbytes = 2 * b * h * w * c * itemsize + b * k2 * h * w * 4
     flops = 2.0 * b * h * w * c * (2 * d_max) ** 2
@@ -139,6 +151,53 @@ def phase_kernels(pairs: int):
         if not ok:
             raise AssertionError(f"corr_fwd disagrees with the plain version at C={c} {name} stride={stride}")
         rows.append(dict(c=c, dtype=name, stride=stride, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+    return rows
+
+
+def phase_bwd_kernels(pairs: int):
+    """corr_bwd_fm0 and corr_bwd_fm1 against autograd through the plain
+    version (the same inputs, the same f32 cotangent g) at the training
+    step's shapes (pairs x 38x75, C = 1024 / 2048, d 8), bf16 and f32, plus
+    stride 2 and H = 48 (the height the TPU package sends to its halo'd
+    dFM1 kernel) at C = 384."""
+    import torch
+
+    from detect_to_track_tpu_torch.ops import correlation as corr
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    d = 8
+    cases = [(38, c, dt, 1) for c in (1024, 2048) for dt in (torch.bfloat16, torch.float32)]
+    cases += [(38, 384, torch.bfloat16, 2), (48, 384, torch.bfloat16, 1), (48, 384, torch.float32, 1)]
+    kernels = {
+        "corr_bwd_fm0": (corr.corr_bwd_fm0_cuda, corr.corr_bwd_fm0_ref),
+        "corr_bwd_fm1": (corr.corr_bwd_fm1_cuda, corr.corr_bwd_fm1_ref),
+    }
+    rows = []
+    for h, c, dt, stride in cases:
+        w = 75
+        fm = torch.randn(pairs, h, w, c, device="cuda", generator=gen).to(dt)
+        g = torch.randn(pairs, (2 * d + 1) ** 2, h, w, device="cuda", generator=gen)
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        for kname, (kernel, plain) in kernels.items():
+            got = kernel(g, fm, d, stride)
+            ref = plain(g, fm, d, stride)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            # f32: the same f32 products summed in another order; bf16: each
+            # side rounds its f32 sum to bf16 once, one bf16 rounding apart
+            tol = (8e-3 if dt == torch.bfloat16 else 1e-5) * scale + 1e-6
+            ok = err <= tol and got.shape == ref.shape and got.dtype == ref.dtype
+            ms = cuda_time_ms(lambda: kernel(g, fm, d, stride))
+            plain_ms = cuda_time_ms(lambda: plain(g, fm, d, stride), iters=3, warmup=1)
+            bound, by = corr_bound_ms(pairs, h, w, c, d, fm.element_size(), dt == torch.float32)
+            log(f"[kernels] {kname} H={h} C={c} {name} stride={stride}: max_abs_err={err:.3e} "
+                f"(tol {tol:.3e}, max|ref| {scale:.3e}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
+                f"bound_ms={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{kname} disagrees with the plain version at H={h} C={c} {name} stride={stride}")
+            rows.append(dict(kernel=kname, h=h, c=c, dtype=name, stride=stride, err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound, bound_by=by))
     return rows
 
 
@@ -245,23 +304,171 @@ def phase_slice(smi: str):
         raise AssertionError("tracks disagree between the kernel and the plain correlation")
     log(f"[slice] {pairs_per_s:.2f} pairs/s at batch {p} ({min(batch_s[1:]) * 1e3:.1f} ms per batch); "
         f"__call__ {min(call_s[1:]) * 1e3:.1f} ms per pair; card: {smi}")
-    phase_profile(det, pairs)
+    phase_profile(f"detect_pairs x{len(pairs)}", lambda: det.detect_pairs(pairs))
     return launches
 
 
-def phase_profile(det, pairs, top: int = 15):
-    """where the time of one warm detect_pairs call goes on the card:
+def phase_train(smi: str, steps: int = 3):
+    """the full-width training path: make_train_step on cfg/default.yaml
+    (ResNet-50, 608x1200, bf16, BATCH_SIZE pairs, FIRST_TRAINABLE_STAGE 3)
+    from the seeded init, synthetic pairs at INPUT_SHAPE packed as uint8. One
+    warm-up step, then `steps` timed steps with the kernel counters reset
+    before and read after: 3 corr_fwd, 2 corr_bwd_fm0 and 2 corr_bwd_fm1
+    launches per step (c3 comes from frozen stages, so its correlation has
+    no backward). Returns the counts."""
+    import numpy as np
+    import torch
+
+    from detect_to_track_tpu_torch import trainer
+    from detect_to_track_tpu_torch.config import load_config
+    from detect_to_track_tpu_torch.data.synthetic import SyntheticVIDManager
+    from detect_to_track_tpu_torch.models import DetectTrackModule
+    from detect_to_track_tpu_torch.ops import correlation as corr
+
+    cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
+    p = cfg.BATCH_SIZE
+    t0 = time.perf_counter()
+    # the package's own seeded init (lecun-normal, identity FrozenBatchNorm),
+    # as the JAX package starts training: the reference-keyed random
+    # weights of the slice phase grow c5 to ~4e3 and the track loss to ~1e8,
+    # and the first lr 1e-2 update diverges. Box heads scaled as there.
+    model = DetectTrackModule.from_config(cfg, seed=0)
+    with torch.no_grad():
+        for head in (model.rpn.reg_fc, model.rcnn.reg_sm_conv):
+            head.weight.mul_(0.002)
+            head.bias.mul_(0.002)
+    step = trainer.make_train_step(model, cfg, trainer.make_optimizer(cfg, model))
+    manager = SyntheticVIDManager(n_samples=p * (steps + 1), image_hw=cfg.INPUT_SHAPE, n_classes=cfg.N_CLASSES)
+    loader = trainer.BatchLoader(manager, p, cfg, seed=0)
+    try:
+        # uint8 frames, as PIL sources pack: the /255 runs on the card
+        batches = [b._replace(images=np.rint(b.images * 255.0).astype(np.uint8)) for b in loader]
+    finally:
+        loader.close()
+    n_train = sum(t.numel() for t in model.parameters() if t.requires_grad)
+    log(f"[train] {cfg.BACKBONE_ARCH} {cfg.INPUT_SHAPE} x{p} pairs {cfg.COMPUTE_DTYPE}, "
+        f"FIRST_TRAINABLE_STAGE {cfg.FIRST_TRAINABLE_STAGE}: {n_train} trainable weights, "
+        f"{len(batches)} synthetic batches (set-up {time.perf_counter() - t0:.1f} s)")
+    watch = ("backbone.conv1.weight", "backbone.layer1.0.conv1.weight", "backbone.layer2.3.conv3.weight",
+             "backbone.layer3.0.conv1.weight")
+    before = {k: model.state_dict()[k].clone() for k in watch}
+
+    def checked(dtl, what):
+        vec = dtl.vector()
+        if not bool(torch.isfinite(vec).all()):
+            raise AssertionError(f"{what}: a loss is not finite: {dtl!r}")
+        return vec.tolist()
+
+    t = time.perf_counter()
+    checked(step(batches[0]), "warm-up step")
+    torch.cuda.synchronize()
+    log(f"[train] warm-up step {(time.perf_counter() - t) * 1e3:.1f} ms")
+
+    # ---- the main path: counters from 0, read right after ----
+    counters = {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
+                "corr_bwd_fm1": corr.corr_bwd_fm1_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(steps):
+        start = [fn.launches for fn in counters.values()]
+        t = time.perf_counter()
+        dtl = step(batches[1 + i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        delta = [fn.launches - s0 for fn, s0 in zip(counters.values(), start)]
+        if delta != [3, 2, 2]:
+            raise AssertionError(f"step {i}: launches (corr_fwd, corr_bwd_fm0, corr_bwd_fm1) = {delta}, expected [3, 2, 2]")
+        o, a, c, r, tr = checked(dtl, f"step {i}")
+        log(f"[train] step {i}: {step_s[-1] * 1e3:.1f} ms, losses o {o:.4e} a {a:.4e} c {c:.4e} r {r:.4e} t {tr:.4e}")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if step.steps != steps + 1:
+        raise AssertionError(f"{step.steps} updates counted after {steps + 1} steps")
+    after = model.state_dict()
+    for k in watch[:3]:
+        if not torch.equal(before[k], after[k]):
+            raise AssertionError(f"frozen weight {k} moved")
+    if torch.equal(before[watch[3]], after[watch[3]]):
+        raise AssertionError(f"trainable weight {watch[3]} did not move")
+    log(f"[train] kernel launches on the main path: {launches} in {steps} steps; frozen stem and layer1-2 "
+        "unchanged, layer3 moved")
+    log(f"[train] {p / min(step_s):.2f} training pairs/s at batch {p} ({min(step_s) * 1e3:.1f} ms per step, "
+        f"steps {[round(x * 1e3, 1) for x in step_s]} ms); peak memory {peak_gib:.2f} GiB; card: {smi}")
+
+    train_track_grads(model, cfg, batches[0])
+    phase_profile(f"train step x{p}", lambda: step(batches[1]))
+    return launches
+
+
+def train_track_grads(model, cfg, batch):
+    """the track loss alone (COEFS weighs it 1e-4 in the step, so a wrong
+    correlation gradient hardly shows in the parameters): its gradients with
+    respect to the c4 and c5 maps through the kernels and through the plain
+    correlation, on the same maps. Outside the main-path launch count."""
+    import torch
+
+    from detect_to_track_tpu_torch import trainer
+    from detect_to_track_tpu_torch.encoding import track_encode
+    from detect_to_track_tpu_torch.losses import track_loss
+    from detect_to_track_tpu_torch.utils import split_pairs
+
+    b = trainer.batch_to_device(batch, next(model.parameters()).device)
+    n, two, h, w, c = b.images.shape
+    with torch.no_grad():
+        fmaps = model.backbone((b.images.float() / 255.0).reshape(n * two, h, w, c))
+        _, _, fm_reg = model.rpn(fmaps["c4"])
+    lbl = b.labels
+    tt = track_encode(*(getattr(lbl, f)[:, fr] for fr in (0, 1) for f in ("boxes", "classes", "track_ids", "mask")))
+
+    def grads(impl):
+        model.c_tracker.corr_impl = impl
+        leaves = {k: fmaps[k].detach().clone().requires_grad_() for k in ("c4", "c5")}
+        pyr = {k: split_pairs(v) for k, v in {"c3": fmaps["c3"][:, ::2, ::2], **leaves}.items()}
+        t_hat = model.c_tracker({k: v[0] for k, v in pyr.items()}, {k: v[1] for k, v in pyr.items()},
+                                *split_pairs(fm_reg), tt.rois)
+        loss = track_loss(t_hat, tt.t_star, tt.valid).mean()
+        return (loss, *torch.autograd.grad(loss, [leaves["c4"], leaves["c5"]]))
+
+    try:
+        got = grads("auto")
+        ref = grads("torch")
+    finally:
+        model.c_tracker.corr_impl = "auto"
+    torch.cuda.synchronize()
+    loss_err = abs(got[0].item() - ref[0].item())
+    if not loss_err <= 1e-3 * abs(ref[0].item()) or ref[0].item() <= 0:
+        raise AssertionError(f"track loss {got[0].item()} (kernels) vs {ref[0].item()} (plain)")
+    for name, x, r in (("c4", got[1], ref[1]), ("c5", got[2], ref[2])):
+        scale = r.float().abs().max().item()
+        err = (x.float() - r.float()).abs().max().item()
+        # bf16 maps: each side rounds its f32 gradient sums to bf16 once
+        # (one rounding apart, 2^-8 relative), and the loss's cotangent
+        # depends on t_hat, whose correlation volumes differ by f32
+        # rounding: 1e-2 of the largest magnitude
+        tol = 1e-2 * scale
+        log(f"[train] track-loss gradient wrt {name}, kernels vs plain correlation: max_abs_err={err:.3e} "
+            f"(tol {tol:.3e}, max|ref| {scale:.3e}); track loss {got[0].item():.6e} vs {ref[0].item():.6e}")
+        if not (scale > 0 and err <= tol and x.dtype == r.dtype):
+            raise AssertionError(f"the track loss's gradient wrt {name} disagrees between kernels and plain correlation")
+
+
+def phase_profile(label, fn, top: int = 15):
+    """where the time of one warm call of fn goes on the card:
     torch.profiler's device time by pipeline stage (the port's `d2t::`
-    ranges) and by kernel, the device's busy share of the call's wall time,
-    and the proposal filter's fixed-point NMS iterations (its
-    `torch.equal` convergence tests). Outside the main-path launch count."""
+    ranges; the backward's kernels are launched from autograd's engine
+    thread, so they are summed over its `evaluate_function` nodes instead)
+    and by kernel, the device's busy share of the call's wall time, and the
+    proposal filter's fixed-point NMS iterations (its `torch.equal`
+    convergence tests). Outside the main-path launch count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        det.detect_pairs(pairs)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     events = prof.key_averages()
@@ -270,11 +477,16 @@ def phase_profile(det, pairs, top: int = 15):
     stages = [e for e in events if e.device_type != cuda and e.key.startswith("d2t::")]
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy = sum(dev_us(e) for e in kernels)
-    log(f"[profile] detect_pairs x{len(pairs)}: wall {wall_us / 1e3:.1f} ms (profiled), device busy "
+    log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms (profiled), device busy "
         f"{busy / 1e3:.1f} ms = {100 * busy / wall_us:.1f}% of wall, {len(kernels)} kernel names")
     for e in stages:
         log(f"[profile]   stage {e.key[5:]:<16s} device {e.device_time_total / 1e3:8.3f} ms "
             f"{100 * e.device_time_total / max(busy, 1e-9):5.1f}% of busy, host {e.cpu_time_total / 1e3:8.3f} ms")
+    bwd = [e for e in events if e.device_type != cuda and e.key.startswith("autograd::engine::evaluate_function")]
+    if bwd:
+        bwd_us = sum(e.device_time_total for e in bwd)
+        log(f"[profile]   autograd backward nodes device {bwd_us / 1e3:8.3f} ms "
+            f"{100 * bwd_us / max(busy, 1e-9):5.1f}% of busy, {sum(e.count for e in bwd)} nodes")
     nms_iters = sum(e.count for e in events if e.key == "aten::equal")
     log(f"[profile]   fixed-point NMS iterations (torch.equal calls): {nms_iters}")
     for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
@@ -290,22 +502,40 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     rows = phase_kernels(pairs=4)
-    launches = phase_slice(smi)
-    # K1 per batched call at the working point: the three scales' shapes
-    main_rows = [r for r in rows if r["dtype"] == "bf16" and r["stride"] == 1]
+    bwd_rows = phase_bwd_kernels(pairs=4)
+    slice_launches = phase_slice(smi)
+    train_launches = phase_train(smi)
+    # per call or step at the working point: K1 over the three scales'
+    # shapes, the backward kernels over c4 and c5 (bf16, stride 1, H 38)
+    main_rows = {"corr_fwd": [r for r in rows if r["dtype"] == "bf16" and r["stride"] == 1]}
+    for name in ("corr_bwd_fm0", "corr_bwd_fm1"):
+        main_rows[name] = [r for r in bwd_rows if r["kernel"] == name and r["dtype"] == "bf16"
+                           and r["stride"] == 1 and r["h"] == 38]
+    errs = {"corr_fwd": [r["err"] for r in rows]}
+    for name in ("corr_bwd_fm0", "corr_bwd_fm1"):
+        errs[name] = [r["err"] for r in bwd_rows if r["kernel"] == name]
+    meta = {
+        "corr_fwd": ("detect_to_track_tpu_torch/ops/csrc/corr_fwd.cu", "detect_to_track_tpu/ops/correlation.py:92",
+                     slice_launches + train_launches["corr_fwd"]),
+        "corr_bwd_fm0": ("detect_to_track_tpu_torch/ops/csrc/corr_bwd.cu", "detect_to_track_tpu/ops/correlation.py:187",
+                         train_launches["corr_bwd_fm0"]),
+        # one kernel for both TPU dFM1 kernels: K3 (:378, H <= 40) and K4 (:267)
+        "corr_bwd_fm1": ("detect_to_track_tpu_torch/ops/csrc/corr_bwd.cu",
+                         "detect_to_track_tpu/ops/correlation.py:378,267", train_launches["corr_bwd_fm1"]),
+    }
     kernels = [{
-        "name": "corr_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "detect_to_track_tpu_torch/ops/csrc/corr_fwd.cu",
-        "replaces": "detect_to_track_tpu/ops/correlation.py:92",
+        "source": source,
+        "replaces": replaces,
         "launches": launches,
-        "max_abs_err": max(r["err"] for r in rows),
-        "ms": sum(r["ms"] for r in main_rows),
-        "plain_ms": sum(r["plain_ms"] for r in main_rows),
-        "bound_ms": sum(r["bound_ms"] for r in main_rows),
-        "bound_by": main_rows[0]["bound_by"],
+        "max_abs_err": max(errs[name]),
+        "ms": sum(r["ms"] for r in main_rows[name]),
+        "plain_ms": sum(r["plain_ms"] for r in main_rows[name]),
+        "bound_ms": sum(r["bound_ms"] for r in main_rows[name]),
+        "bound_by": main_rows[name][0]["bound_by"],
         "library_ms": None,
-    }]
+    } for name, (source, replaces, launches) in meta.items()]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,7 @@ from .config import Config
 from .encoding import frcnn_box_decode
 from .models import DetectTrackModule
 from .ops.nms import _take_rows, _top_k, batched_proposal_filter
-from .utils import image_to_input, promote_mixed_image_dtypes, resolve_device, split_pairs
+from .utils import check_model_device, image_to_input, promote_mixed_image_dtypes, resolve_device, split_pairs
 
 Device = Optional[Union[str, torch.device]]
 
@@ -82,12 +82,6 @@ def _detect_frames(model: DetectTrackModule, x: torch.Tensor, anchors: torch.Ten
     return fmaps_t, fm_reg, confs, boxes, valid
 
 
-def _check_model_device(model: torch.nn.Module, device: torch.device) -> None:
-    param = next(model.parameters())
-    if param.device.type != device.type:
-        raise ValueError(f"the model lies on {param.device}, the call asks for {device}")
-
-
 @torch.inference_mode()
 def detect_pairs_batched(
     model: DetectTrackModule,
@@ -107,7 +101,7 @@ def detect_pairs_batched(
     Returns PairDetections with a leading P axis on every field.
     """
     dev = resolve_device(device)
-    _check_model_device(model, dev)
+    check_model_device(model, dev)
     images = torch.as_tensor(images).to(dev)
     anchors = torch.as_tensor(anchors).to(dev)
     p, two, h, w, c = images.shape

@@ -29,6 +29,7 @@ class DetectTrackModule(nn.Module):
     def __init__(
         self,
         backbone_arch: str = "resnet50",
+        first_trainable_stage: int = 0,
         n_anchors: int = 15,
         n_classes: int = 30,
         k: int = 7,
@@ -41,7 +42,7 @@ class DetectTrackModule(nn.Module):
     ) -> None:
         super().__init__()
         self.dtype = dtype
-        self.backbone = ResNetBackbone(arch=backbone_arch, dtype=dtype)
+        self.backbone = ResNetBackbone(arch=backbone_arch, dtype=dtype, first_trainable_stage=first_trainable_stage)
         self.rpn = RPN(n_anchors, self.stage4_outchannels, self.rpn_channels, dtype=dtype)
         self.rcnn = RFCN(
             n_classes,
@@ -71,15 +72,22 @@ class DetectTrackModule(nn.Module):
         random weights drawn from a torch.Generator seeded by `seed`
         (lecun-normal kernels, zero biases, identity FrozenBatchNorm, as the
         JAX package initializes). Load trained weights with
-        `load_state_dict` afterwards."""
+        `load_state_dict` afterwards. The backbone's freeze boundary is
+        cfg.FIRST_TRAINABLE_STAGE."""
         if cfg.HOST_S2D:
             raise NotImplementedError(
                 "HOST_S2D (the 12-channel space-to-depth stem) is not ported yet (ROADMAP.md)"
+            )
+        if cfg.REMAT:
+            raise NotImplementedError(
+                "REMAT (rematerialized backbone blocks) is not ported yet: ROADMAP.md item 10, "
+                "with torch.utils.checkpoint"
             )
         dev = resolve_device(device)
         with torch.device("meta"):
             model = cls(
                 backbone_arch=cfg.BACKBONE_ARCH,
+                first_trainable_stage=cfg.FIRST_TRAINABLE_STAGE,
                 n_anchors=cfg.n_anchors_per_cell,
                 n_classes=cfg.N_CLASSES,
                 k=cfg.K,

@@ -9,6 +9,10 @@
   buffers.
 - ImageNet normalization of [0, 1] RGB input, in the input's dtype, before
   the cast to the compute dtype.
+- the freeze boundary: with first_trainable_stage = s > 0 the activation
+  entering layer s is detached, and so is every pyramid level produced only
+  by frozen stages (c3 at s = 3), as the JAX package's stop_gradient cuts
+  do; `set_trainable_stages` clears requires_grad on the frozen weights.
 
 Public layout is NHWC, as in the JAX package. Inside, the convolutions take
 `x.permute(0, 3, 1, 2)` of a contiguous NHWC tensor, which is already a
@@ -17,7 +21,8 @@ channels-last NCHW tensor, so no copy is made.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import re
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -106,14 +111,17 @@ class ResNetBackbone(nn.Module):
     Args:
         arch: one of ARCHS.
         dtype: compute dtype (parameters stay float32).
+        first_trainable_stage: the freeze boundary (module docstring); 0
+            cuts nothing.
     """
 
-    def __init__(self, arch: str = "resnet50", dtype: torch.dtype = torch.float32):
+    def __init__(self, arch: str = "resnet50", dtype: torch.dtype = torch.float32, first_trainable_stage: int = 0):
         super().__init__()
         if arch not in ARCHS:
             raise ValueError(f"unknown arch {arch!r} (one of {sorted(ARCHS)})")
         self.arch = arch
         self.dtype = dtype
+        self.first_trainable_stage = first_trainable_stage
         blocks, groups, base_width = ARCHS[arch]
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
@@ -155,8 +163,36 @@ class ResNetBackbone(nn.Module):
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = {}
+        fts = self.first_trainable_stage
         for li in range(1, 5):
+            if li == fts:
+                x = x.detach()  # nothing below the boundary gets a gradient
             x = getattr(self, f"layer{li}")(x)
             if li >= 2:
-                feats[f"c{li + 1}"] = x.permute(0, 2, 3, 1)
+                out = x.permute(0, 2, 3, 1)
+                if li < fts:
+                    # a level made only by frozen stages: no consumer can
+                    # reach a trainable weight through it
+                    out = out.detach()
+                feats[f"c{li + 1}"] = out
         return feats
+
+
+def set_trainable_stages(model: nn.Module, first_trainable_stage: int) -> List[nn.Parameter]:
+    """freeze the stem and the backbone stages below first_trainable_stage
+    (requires_grad=False) and return the parameters that stay trainable, in
+    `named_parameters` order. Backbone parameters are those named
+    `backbone.*` (the DetectTrackModule's); the heads always train.
+    FrozenBatchNorm affines are buffers and never train. The JAX package's
+    `resnet_trainable_mask` makes the same choice."""
+    trainable = []
+    for name, param in model.named_parameters():
+        parts = name.split(".")
+        train = True
+        if parts[0] == "backbone":
+            stage = next((int(m.group(1)) for m in map(re.compile(r"layer(\d)").fullmatch, parts) if m), None)
+            train = stage is not None and stage >= first_trainable_stage
+        param.requires_grad_(train)
+        if train:
+            trainable.append(param)
+    return trainable

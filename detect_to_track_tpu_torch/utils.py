@@ -21,6 +21,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
+def check_model_device(model: torch.nn.Module, device: torch.device) -> None:
+    """raise unless the model's parameters lie on `device`'s type."""
+    param = next(model.parameters())
+    if param.device.type != device.type:
+        raise ValueError(f"the model lies on {param.device}, the call asks for {device}")
+
+
 def split_pairs(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(2B, ...) interleaved frame pairs -> ((B, ...), (B, ...))."""
     r = x.reshape(x.shape[0] // 2, 2, *x.shape[1:])

@@ -364,5 +364,10 @@ def test_correlation_errors(rng):
     with pytest.raises(ValueError, match="CUDA tensors"):
         correlation.pointwise_correlation(fm, fm, 2, impl="cuda")
     assert correlation.corr_fwd_cuda.launches == launches  # nothing launched
-    with pytest.raises(NotImplementedError, match="K2"):
-        correlation._CorrFunction.backward(None, torch.zeros(1))
+    # the backward kernels take CUDA tensors only, and count no launch otherwise
+    bwd = (correlation.corr_bwd_fm0_cuda, correlation.corr_bwd_fm1_cuda)
+    counts = [fn.launches for fn in bwd]
+    for fn in bwd:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            fn(torch.zeros(1, 25, 6, 6), fm, 2, 1)
+    assert [fn.launches for fn in bwd] == counts
