@@ -5,10 +5,13 @@
 Phases, each printing a line:
   1. device: needs CUDA; prints the card's name and power limit.
   2. build: compiles every kernel of the port with nvcc (in parallel) into
-     build/torch_kernels/ and prints the build seconds.
+     build/torch_kernels/ and prints the build seconds, each kernel's
+     registers and spills (ptxas) and its tensor-core instructions (SASS).
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the main path gives it, with its time, the plain version's
-     time and the least time the card could take (the bound).
+     time and the least time the card could take (the bound); the bf16
+     tensor-core kernels also at d_max 1 and 12, stride 3, C = 33 and a
+     5x7 map, with the bytes they stage from L2.
   4. slice: the full-width detect-and-track path (cfg/default.yaml: ResNet-50,
      608x1200, bf16) with random weights from a seed, through
      Detector.__call__ and Detector.detect_pairs on a batch of BATCH_SIZE
@@ -67,17 +70,73 @@ def phase_device():
     return smi
 
 
+def _demangle(names):
+    """C++ names for mangled kernel symbols (c++filt where the machine has
+    it, else the symbols as they are)."""
+    import shutil
+
+    if not names or not shutil.which("c++filt"):
+        return {n: n for n in names}
+    out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True).stdout
+    return dict(zip(names, out.splitlines()))
+
+
+def _kernel_short(name: str) -> str:
+    """`void (anonymous namespace)::corr_fwd_mma_kernel<4>(...)` -> `corr_fwd_mma_kernel<4>`."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+
+
 def phase_build():
+    """compile every kernel library, print each kernel's registers, stack
+    and spills from ptxas, and count each kernel's tensor-core (HMMA /
+    HGMMA) instructions in the SASS (cuobjdump). The bf16 kernels of the
+    forward and of dFM1 must have some."""
+    import re
+
     from detect_to_track_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     built = _build.build()
     total = time.perf_counter() - t0
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     for name, info in built.items():
         log(f"[build] {name}: {info['seconds']:.2f} s -> {info['path'].name}")
+        # ptxas -v: "Compiling entry function '<sym>'", then its stack/spill
+        # line and its "Used N registers" line
+        report, current = {}, None
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build]   {line.strip()}")
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                current = m.group(1)
+                report[current] = []
+            elif current and ("spill" in line or "registers" in line):
+                report[current].append(line.split(":", 1)[-1].strip() if "registers" in line else line.strip())
+        names = _demangle(list(report))
+        for sym, lines in report.items():
+            log(f"[build]   {_kernel_short(names[sym])}: {'; '.join(lines)}")
+        if info["log"] == "cached":
+            log("[build]   (cached library: no ptxas report)")
+        if not cuobjdump.exists():
+            log(f"[build]   {cuobjdump} not found: tensor-core instructions not counted")
+            continue
+        sass = subprocess.run([str(cuobjdump), "-sass", str(info["path"])], capture_output=True, text=True,
+                              check=True).stdout
+        counts, current = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = m.group(1)
+                counts[current] = {}
+            elif current:
+                op = re.search(r"\b(H[G]?MMA[.\w]*)", line)
+                if op:
+                    counts[current][op.group(1)] = counts[current].get(op.group(1), 0) + 1
+        names = _demangle(list(counts))
+        for sym, ops in counts.items():
+            short = _kernel_short(names[sym])
+            log(f"[build]   {short}: tensor-core instructions {ops or 'none'}")
+            if "mma_kernel" in short and not ops:
+                raise AssertionError(f"{short} has no tensor-core instruction in its SASS")
     log(f"[build] all kernels built in {total:.2f} s")
 
 
@@ -114,19 +173,50 @@ def corr_bound_ms(b, h, w, c, d_max, itemsize, f32_math):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def staged_bytes(kernel, b, h, w, c, d, stride):
+    """bytes a bf16 tensor-core kernel copies from L2 into shared memory in
+    one call, from its staging geometry (corr_fwd.cu, corr_bwd.cu): every
+    live fm1 window row (16 + 8 NT columns) and the fm0 tile per 32 output
+    columns of a row for K1; the live source row's window (16 + 16 KS
+    columns) and the 2 x 16 x 2d band values of g per 32 output columns and
+    128 channels for dFM1. Each map byte is re-read about 2d times."""
+    def live(p, r):  # correlation_window_masks along the height
+        src = p + r - d
+        return r < 2 * d and 0 <= src < h and (src - max(0, p - d)) % stride == 0
+
+    tiles = -(-w // 32)
+    if kernel == "corr_fwd":
+        nt = -(-(15 + 2 * d) // 8)
+        rows = sum(live(i, r) for i in range(h) for r in range(2 * d))
+        return b * tiles * (rows * (16 + 8 * nt) + h * 32) * c * 2
+    ks = -(-(15 + 2 * d) // 16)
+    rows = sum(0 <= y - r + d < h and live(y - r + d, r) for y in range(h) for r in range(2 * d))
+    return b * tiles * rows * ((16 + 16 * ks) * c * 2 + -(-c // 128) * 2 * 16 * 2 * d * 4)
+
+
+def _odd_cases(dt):
+    """shapes off the working point, each a case of the bf16 tensor-core
+    kernels: (H, W, C, d_max, stride) at d_max 1 and 12, stride 3, C = 33
+    (scalar staging, a partial chunk) and a 5x7 map smaller than the window."""
+    return [(38, 75, 384, 1, 1, dt), (38, 75, 384, 12, 1, dt), (38, 75, 384, 8, 3, dt),
+            (38, 75, 33, 8, 1, dt), (5, 7, 64, 8, 1, dt)]
+
+
 def phase_kernels(pairs: int):
     """K1 against the plain version at the tracker's shapes (pairs x 38x75,
-    C = 512 / 1024 / 2048, d 8), bf16 and f32, plus stride 2 and C = 384."""
+    C = 512 / 1024 / 2048, d 8), bf16 and f32, plus stride 2 and C = 384,
+    and the bf16 odd cases."""
     import torch
 
     from detect_to_track_tpu_torch.ops.correlation import corr_fwd_cuda, pointwise_correlation
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    h, w, d = 38, 75, 8
-    cases = [(c, dt, 1) for c in (512, 1024, 2048) for dt in (torch.bfloat16, torch.float32)]
-    cases += [(384, torch.bfloat16, 2), (384, torch.float32, 2), (384, torch.float32, 1)]
+    cases = [(38, 75, c, 8, 1, dt) for c in (512, 1024, 2048) for dt in (torch.bfloat16, torch.float32)]
+    cases += [(38, 75, 384, 8, 2, torch.bfloat16), (38, 75, 384, 8, 2, torch.float32),
+              (38, 75, 384, 8, 1, torch.float32)]
+    cases += _odd_cases(torch.bfloat16)
     rows = []
-    for c, dt, stride in cases:
+    for h, w, c, d, stride, dt in cases:
         fm0 = torch.randn(pairs, h, w, c, device="cuda", generator=gen).to(dt)
         fm1 = torch.randn(pairs, h, w, c, device="cuda", generator=gen).to(dt)
         got = pointwise_correlation(fm0, fm1, d, stride, impl="cuda", layout="k2hw")
@@ -134,8 +224,9 @@ def phase_kernels(pairs: int):
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
-        # both sum the same products in f32, in another order: the error is
-        # f32 rounding of a C-term sum, relative to the largest magnitude
+        # both sum the same products in f32 (bf16 products are exact in f32;
+        # bf16 sums on the tensor cores), in another order: the error is f32
+        # rounding of a C-term sum, relative to the largest magnitude
         tol = 1e-5 * scale + 1e-5
         ok = err <= tol and got.shape == ref.shape
         ms = cuda_time_ms(lambda: corr_fwd_cuda(fm0, fm1, d, stride))
@@ -145,12 +236,18 @@ def phase_kernels(pairs: int):
         )
         bound, by = corr_bound_ms(pairs, h, w, c, d, fm0.element_size(), dt == torch.float32)
         name = "bf16" if dt == torch.bfloat16 else "f32"
-        log(f"[kernels] corr_fwd C={c} {name} stride={stride}: max_abs_err={err:.3e} "
+        staged = ""
+        if dt == torch.bfloat16:
+            nbytes = staged_bytes("corr_fwd", pairs, h, w, c, d, stride)
+            staged = f" staged {nbytes / 1e6:.1f} MB = {nbytes / ms / 1e9:.2f} TB/s"
+        log(f"[kernels] corr_fwd {h}x{w} C={c} d={d} {name} stride={stride}: max_abs_err={err:.3e} "
             f"(tol {tol:.3e}, max|ref| {scale:.3e}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
-            f"bound_ms={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
+            f"bound_ms={bound:.4f} ({by}){staged} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"corr_fwd disagrees with the plain version at C={c} {name} stride={stride}")
-        rows.append(dict(c=c, dtype=name, stride=stride, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by))
+            raise AssertionError(f"corr_fwd disagrees with the plain version at {h}x{w} C={c} d={d} {name} "
+                                 f"stride={stride}")
+        rows.append(dict(h=h, c=c, d=d, dtype=name, stride=stride, err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=by))
     return rows
 
 
@@ -159,22 +256,22 @@ def phase_bwd_kernels(pairs: int):
     version (the same inputs, the same f32 cotangent g) at the training
     step's shapes (pairs x 38x75, C = 1024 / 2048, d 8), bf16 and f32, plus
     stride 2 and H = 48 (the height the TPU package sends to its halo'd
-    dFM1 kernel) at C = 384."""
+    dFM1 kernel) at C = 384, and the bf16 odd cases."""
     import torch
 
     from detect_to_track_tpu_torch.ops import correlation as corr
 
     gen = torch.Generator(device="cuda").manual_seed(1)
-    d = 8
-    cases = [(38, c, dt, 1) for c in (1024, 2048) for dt in (torch.bfloat16, torch.float32)]
-    cases += [(38, 384, torch.bfloat16, 2), (48, 384, torch.bfloat16, 1), (48, 384, torch.float32, 1)]
+    cases = [(38, 75, c, 8, 1, dt) for c in (1024, 2048) for dt in (torch.bfloat16, torch.float32)]
+    cases += [(38, 75, 384, 8, 2, torch.bfloat16), (48, 75, 384, 8, 1, torch.bfloat16),
+              (48, 75, 384, 8, 1, torch.float32)]
+    cases += _odd_cases(torch.bfloat16)
     kernels = {
         "corr_bwd_fm0": (corr.corr_bwd_fm0_cuda, corr.corr_bwd_fm0_ref),
         "corr_bwd_fm1": (corr.corr_bwd_fm1_cuda, corr.corr_bwd_fm1_ref),
     }
     rows = []
-    for h, c, dt, stride in cases:
-        w = 75
+    for h, w, c, d, stride, dt in cases:
         fm = torch.randn(pairs, h, w, c, device="cuda", generator=gen).to(dt)
         g = torch.randn(pairs, (2 * d + 1) ** 2, h, w, device="cuda", generator=gen)
         name = "bf16" if dt == torch.bfloat16 else "f32"
@@ -185,18 +282,24 @@ def phase_bwd_kernels(pairs: int):
             err = (got.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
             # f32: the same f32 products summed in another order; bf16: each
-            # side rounds its f32 sum to bf16 once, one bf16 rounding apart
+            # side rounds its f32 sum to bf16 once, one bf16 rounding apart,
+            # and the tensor-core dFM1 rounds g to bf16 as the TPU kernel does
             tol = (8e-3 if dt == torch.bfloat16 else 1e-5) * scale + 1e-6
             ok = err <= tol and got.shape == ref.shape and got.dtype == ref.dtype
             ms = cuda_time_ms(lambda: kernel(g, fm, d, stride))
             plain_ms = cuda_time_ms(lambda: plain(g, fm, d, stride), iters=3, warmup=1)
             bound, by = corr_bound_ms(pairs, h, w, c, d, fm.element_size(), dt == torch.float32)
-            log(f"[kernels] {kname} H={h} C={c} {name} stride={stride}: max_abs_err={err:.3e} "
+            staged = ""
+            if kname == "corr_bwd_fm1" and dt == torch.bfloat16:
+                nbytes = staged_bytes(kname, pairs, h, w, c, d, stride)
+                staged = f" staged {nbytes / 1e6:.1f} MB = {nbytes / ms / 1e9:.2f} TB/s"
+            log(f"[kernels] {kname} {h}x{w} C={c} d={d} {name} stride={stride}: max_abs_err={err:.3e} "
                 f"(tol {tol:.3e}, max|ref| {scale:.3e}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
-                f"bound_ms={bound:.4f} ({by}) {'ok' if ok else 'FAIL'}")
+                f"bound_ms={bound:.4f} ({by}){staged} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"{kname} disagrees with the plain version at H={h} C={c} {name} stride={stride}")
-            rows.append(dict(kernel=kname, h=h, c=c, dtype=name, stride=stride, err=err, ms=ms,
+                raise AssertionError(f"{kname} disagrees with the plain version at {h}x{w} C={c} d={d} {name} "
+                                     f"stride={stride}")
+            rows.append(dict(kernel=kname, h=h, c=c, d=d, dtype=name, stride=stride, err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound, bound_by=by))
     return rows
 
@@ -489,8 +592,12 @@ def phase_profile(label, fn, top: int = 15):
             f"{100 * bwd_us / max(busy, 1e-9):5.1f}% of busy, {sum(e.count for e in bwd)} nodes")
     nms_iters = sum(e.count for e in events if e.key == "aten::equal")
     log(f"[profile]   fixed-point NMS iterations (torch.equal calls): {nms_iters}")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
-        log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / max(busy, 1e-9):5.1f}%  x{e.count:<4d} {e.key[:90]}")
+    ranked = sorted(kernels, key=dev_us, reverse=True)
+    # the top kernels, then the port's own kernels wherever they rank
+    for rank, e in enumerate(ranked):
+        if rank < top or "corr_" in e.key:
+            log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / max(busy, 1e-9):5.1f}%  x{e.count:<4d} "
+                f"#{rank + 1:<3d} {e.key[:90]}")
 
 
 def main() -> int:
@@ -505,12 +612,14 @@ def main() -> int:
     bwd_rows = phase_bwd_kernels(pairs=4)
     slice_launches = phase_slice(smi)
     train_launches = phase_train(smi)
-    # per call or step at the working point: K1 over the three scales'
-    # shapes, the backward kernels over c4 and c5 (bf16, stride 1, H 38)
-    main_rows = {"corr_fwd": [r for r in rows if r["dtype"] == "bf16" and r["stride"] == 1]}
+    # per call or step at the working point (bf16, 38x75, d 8, stride 1):
+    # K1 over the three scales' channels, the backward kernels over c4 and c5
+    def at_working_point(r, channels):
+        return r["dtype"] == "bf16" and r["stride"] == 1 and r["h"] == 38 and r["d"] == 8 and r["c"] in channels
+
+    main_rows = {"corr_fwd": [r for r in rows if at_working_point(r, (512, 1024, 2048))]}
     for name in ("corr_bwd_fm0", "corr_bwd_fm1"):
-        main_rows[name] = [r for r in bwd_rows if r["kernel"] == name and r["dtype"] == "bf16"
-                           and r["stride"] == 1 and r["h"] == 38]
+        main_rows[name] = [r for r in bwd_rows if r["kernel"] == name and at_working_point(r, (1024, 2048))]
     errs = {"corr_fwd": [r["err"] for r in rows]}
     for name in ("corr_bwd_fm0", "corr_bwd_fm1"):
         errs[name] = [r["err"] for r in bwd_rows if r["kernel"] == name]

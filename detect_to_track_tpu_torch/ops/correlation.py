@@ -12,6 +12,10 @@ PyTorch's current stream:
 - `csrc/corr_bwd.cu`, the backward: `corr_bwd_fm0` (port of
   `_bwd_fm0_kernel`) and `corr_bwd_fm1` (port of both
   `_bwd_fm1_single_tile_kernel` and `_bwd_fm1_kernel`, for any height).
+The maps' dtype picks the kernel: bf16 maps run the forward and dFM1 as
+banded products on the tensor cores (`mma.sync`, f32 sums); f32 maps, and
+dFM0 in both dtypes, run the CUDA-core kernels (f32 FMAs), because the f32
+gate of 1e-5 of the largest magnitude rules out bf16 tensor cores.
 A CUDA tensor launches them or raises; only CPU tensors take the plain
 version, whose autograd is the plain backward.
 """
@@ -38,7 +42,7 @@ def _corr_lib() -> ctypes.CDLL:
         ctypes.c_void_p,
     ]
     lib.d2t_corr_fwd.restype = ctypes.c_int
-    lib.d2t_corr_fwd_smem_bytes.argtypes = [ctypes.c_int]
+    lib.d2t_corr_fwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.d2t_corr_fwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
@@ -53,8 +57,9 @@ def _corr_bwd_lib() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    lib.d2t_corr_bwd_smem_bytes.argtypes = [ctypes.c_int]
-    lib.d2t_corr_bwd_smem_bytes.restype = ctypes.c_size_t
+    for fn in (lib.d2t_corr_bwd_fm0_smem_bytes, lib.d2t_corr_bwd_fm1_smem_bytes):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_size_t
     return lib
 
 
@@ -88,22 +93,36 @@ def _check_smem(smem: int, d_max: int) -> None:
         )
 
 
+def _tensor_core_map(fm: torch.Tensor) -> torch.Tensor:
+    """a contiguous bf16 map as the tensor-core kernels stage it, in whole
+    16-byte channel units: 16-byte aligned, C zero-padded to a multiple of 8
+    (zeros add nothing to any sum). Copies only maps that are not so."""
+    pad = -fm.shape[-1] % 8
+    if pad:
+        return torch.nn.functional.pad(fm, (0, pad))
+    return fm.clone() if fm.data_ptr() % 16 else fm
+
+
 def corr_fwd_cuda(fm0: torch.Tensor, fm1: torch.Tensor, d_max: int, stride: int) -> torch.Tensor:
-    """launch the forward kernel: (B, H, W, C) bf16 or f32 CUDA tensors ->
-    (B, (2d+1)^2, H, W) f32. Counts each launch in `corr_fwd_cuda.launches`."""
+    """launch the forward kernel: (B, H, W, C) bf16 (tensor cores) or f32
+    (CUDA cores) CUDA tensors -> (B, (2d+1)^2, H, W) f32. Counts each launch
+    in `corr_fwd_cuda.launches`."""
     _check_maps(fm0, fm1, d_max, stride)
-    b, h, w, c = fm0.shape
+    b, h, w, _ = fm0.shape
     k = 2 * d_max + 1
+    is_bf16 = int(fm0.dtype == torch.bfloat16)
     lib = _corr_lib()
-    _check_smem(lib.d2t_corr_fwd_smem_bytes(d_max), d_max)
+    _check_smem(lib.d2t_corr_fwd_smem_bytes(d_max, is_bf16), d_max)
     fm0 = fm0.contiguous()
     fm1 = fm1.contiguous()
+    if is_bf16:
+        fm0, fm1 = _tensor_core_map(fm0), _tensor_core_map(fm1)
     out = torch.empty((b, k * k, h, w), dtype=torch.float32, device=fm0.device)
     with torch.cuda.device(fm0.device):
         stream = torch.cuda.current_stream(fm0.device).cuda_stream
         err = lib.d2t_corr_fwd(
             fm0.data_ptr(), fm1.data_ptr(), out.data_ptr(),
-            b, h, w, c, d_max, stride, int(fm0.dtype == torch.bfloat16), stream,
+            b, h, w, fm0.shape[-1], d_max, stride, is_bf16, stream,
         )
     if err != 0:
         raise RuntimeError(f"correlation kernel launch failed: CUDA error {err}")
@@ -125,20 +144,23 @@ def _corr_bwd_launch(fn_name: str, g: torch.Tensor, fm: torch.Tensor, d_max: int
             f"g must be a ({b}, {k * k}, {h}, {w}) tensor on {fm.device}, "
             f"got {tuple(g.shape)} on {g.device}"
         )
+    is_bf16 = int(fm.dtype == torch.bfloat16)
     lib = _corr_bwd_lib()
-    _check_smem(lib.d2t_corr_bwd_smem_bytes(d_max), d_max)
+    _check_smem(getattr(lib, fn_name + "_smem_bytes")(d_max, is_bf16), d_max)
     g = g.to(torch.float32).contiguous()
     fm = fm.contiguous()
+    if is_bf16 and fn_name == "d2t_corr_bwd_fm1":  # the tensor-core kernel
+        fm = _tensor_core_map(fm)
     out = torch.empty_like(fm)
     with torch.cuda.device(fm.device):
         stream = torch.cuda.current_stream(fm.device).cuda_stream
         err = getattr(lib, fn_name)(
             g.data_ptr(), fm.data_ptr(), out.data_ptr(),
-            b, h, w, c, d_max, stride, int(fm.dtype == torch.bfloat16), stream,
+            b, h, w, fm.shape[-1], d_max, stride, is_bf16, stream,
         )
     if err != 0:
         raise RuntimeError(f"correlation backward kernel {fn_name} launch failed: CUDA error {err}")
-    return out
+    return out if out.shape[-1] == c else out[..., :c].contiguous()
 
 
 def corr_bwd_fm0_cuda(g: torch.Tensor, fm1: torch.Tensor, d_max: int, stride: int) -> torch.Tensor:
@@ -155,7 +177,9 @@ corr_bwd_fm0_cuda.launches = 0
 
 def corr_bwd_fm1_cuda(g: torch.Tensor, fm0: torch.Tensor, d_max: int, stride: int) -> torch.Tensor:
     """launch the dFM1 kernel: g and fm0 -> dFM1 (B, H, W, C) in fm0's dtype,
-    for any H. Counts each launch in `corr_bwd_fm1_cuda.launches`."""
+    for any H (bf16 on the tensor cores, g rounded to bf16 as the TPU kernel
+    does; f32 on the CUDA cores). Counts each launch in
+    `corr_bwd_fm1_cuda.launches`."""
     out = _corr_bwd_launch("d2t_corr_bwd_fm1", g, fm0, d_max, stride)
     corr_bwd_fm1_cuda.launches += 1
     return out

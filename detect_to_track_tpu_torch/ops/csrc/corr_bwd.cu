@@ -1,4 +1,4 @@
-// Pointwise correlation backward for Hopper (sm_90a), CUDA cores, f32 sums.
+// Pointwise correlation backward for Hopper (sm_90a), f32 sums.
 //
 // Replaces the TPU kernels of detect_to_track_tpu/ops/correlation.py:
 //   - _bwd_fm0_kernel (K2) by corr_bwd_fm0:
@@ -23,7 +23,44 @@
 // 6 / 12 us on bf16 tensor cores. Bytes bound it; on the CUDA cores the
 // arithmetic (90 / 180 us at 67 TFLOP/s f32) would.
 //
-// Design (simple first; a later change makes it fast):
+// Which kernel runs: corr_bwd_fm1 in bf16 is corr_bwd_fm1_mma_kernel, on the
+// tensor cores; corr_bwd_fm0 (both dtypes) and corr_bwd_fm1 in f32 are
+// corr_bwd_kernel, on the CUDA cores. The f32 gate (1e-5 of the largest
+// magnitude) rules out bf16 tensor cores, and TF32 would need a three-pass
+// split to hold it; corr_bwd_fm0 is redesigned on its own.
+//
+// corr_bwd_fm1_mma_kernel, banded products (the form of the TPU's K3). Fix
+// the output row y, a live row displacement di (source row s = y - di + d;
+// skipped for the whole block when s is off the map or off the stride
+// phase) and 16 output columns x0..x0+15. Then
+//   dFM1[b, y, x0 + m, c] += sum_j G[m, j] * FM0[b, s, x0 - d + 1 + j, c]
+// over K = 16 * ceil((15 + 2d) / 16) source columns j, with the masked
+// banded gradient G[m, j] = mask * g[b, di*k + (m - j + 2d - 1), s,
+// x0 - d + 1 + j] for 0 <= m - j + 2d - 1 < 2d, else 0.
+// - mma.sync.m16n8k16 (bf16 in, f32 accumulate). FM0's window is K-major
+//   with the channels (N) contiguous, so B comes from shared memory by
+//   ldmatrix.trans. G is built per di from g: cp.async copies the 2d band
+//   values of each row (4 bytes each, zero-filled where masked) as f32 into
+//   a band buffer whose other entries stay zero, and the A fragments are
+//   rounded to bf16 as they are read, as the TPU kernel rounds its banded
+//   gradient (ext_t = bf16). wgmma needs 64-row tiles, four times the
+//   16-wide band, so mma.sync keeps the tile at the band's width.
+// - one block of 4 warps per (b, y, 32 output columns, 128 channels); warp
+//   w owns 32 channels of both m16 tiles (32 f32 sums per lane). Both m16
+//   tiles share one staged source window of 16 + K columns.
+// - per di, the FM0 window (16-byte cp.async, zero-filled off the map and
+//   past C; the wrapper pads C to a multiple of 8) and the band stream
+//   through a 3-slot ring in shared memory, so the next displacements load
+//   while the current one multiplies. Each thread's copy offsets are
+//   computed once per block: only the source row changes with di. A staged
+//   pixel is 136 bf16 (272 bytes, 17 16-byte units): the 8 rows of an
+//   ldmatrix phase fall on 8 bank groups. KS = K / 16 is a template
+//   parameter (2-4), so bf16 takes d_max <= 24.
+// - the sums leave through shared memory as 16-byte stores per 8 channels.
+// One kernel takes any H: the TPU split between K3 (H <= 40) and K4 is a
+// VMEM tiling choice.
+//
+// corr_bwd_kernel (CUDA cores, as first written):
 // - one block of 4 warps per (b, output row, 32 output columns, 64
 //   channels); a lane owns 2 channels (c and c + 32) of 8 adjacent output
 //   columns, so 16 f32 sums sit in registers, and each warp owns 8 columns;
@@ -212,27 +249,319 @@ int launch(const void* g, const void* fm, void* out, int B, int H, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kFm1>
-int dispatch(const void* g, const void* fm, void* out, int B, int H, int W,
-             int C, int d_max, int stride, int is_bf16, void* stream) {
+// ---- corr_bwd_fm1 in bf16: banded products on the tensor cores ----
+
+constexpr int FX = 32;              // output columns per block: two m16 tiles
+constexpr int FCB = 128;            // channels per block: 4 warps x 32
+constexpr int FTHREADS = 128;
+constexpr int FPITCH = FCB + 8;     // bf16 per staged pixel (272 bytes)
+constexpr int FSEGS = FCB / 8;      // 16-byte segments per staged pixel
+constexpr int FSTAGES = 3;          // ring slots
+constexpr int MAX_KS = 4;           // k16 steps per m16 tile: d_max <= 24
+constexpr int kMaxSmemBytes = 232448;  // shared memory one SM gives blocks
+
+// k16 steps per m16 tile: the band of a 16-row tile spans 15 + 2d columns
+int fm1_ks(int d) { return (15 + 2 * d + 15) / 16; }
+
+// per ring slot: the source window (16 + 16 KS pixels x FPITCH bf16), then
+// the band (2 tiles x 16 rows x (16 KS + 8) f32; the pitch is 8 or 24
+// modulo 32 banks, so a fragment's 8-byte reads do not conflict)
+__host__ __device__ constexpr int fm1_window(int ks) { return 16 + 16 * ks; }
+__host__ __device__ constexpr int fm1_gpitch(int ks) { return 16 * ks + 8; }
+__host__ __device__ constexpr int fm1_slot_bytes(int ks) {
+  return fm1_window(ks) * FPITCH * 2 + 2 * 16 * fm1_gpitch(ks) * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared (a shared-space address), asynchronously;
+// valid = false writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; valid = false writes zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// the four 8x8 bf16 matrices at the 32 lanes' row addresses, transposed
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a * b for one m16n8k16 tile: bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two adjacent f32 band values as one bf16x2 fragment register
+__device__ __forceinline__ uint32_t bf16x2(const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// As many blocks per SM as the ring lets in (4 at KS = 2), and registers up
+// to what that occupancy allows: left to itself, ptxas held the KS = 2
+// kernel at 72 registers with a spill, and it ran 14% slower on an H100.
+template <int KS>
+__global__ void __launch_bounds__(FTHREADS, kMaxSmemBytes / (FSTAGES * fm1_slot_bytes(KS)))
+    corr_bwd_fm1_mma_kernel(const float* __restrict__ g,
+                            const __nv_bfloat16* __restrict__ fm0,
+                            __nv_bfloat16* __restrict__ out, int H, int W,
+                            int C, int d, int stride) {
+  constexpr int WINDOW = fm1_window(KS);  // staged source columns
+  constexpr int GP = fm1_gpitch(KS);
+  constexpr int SLOT = fm1_slot_bytes(KS);
+  constexpr int BAND_OFF = WINDOW * FPITCH * 2;  // bytes into a slot
+  constexpr int NW = WINDOW / (FTHREADS / FSEGS);  // window pixels per thread
+  // band entries per thread: 2 tiles x 16 rows x 2d, d <= 8 KS - 8
+  constexpr int NB = (2 * 16 * 2 * (8 * KS - 8) + FTHREADS - 1) / FTHREADS;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+
+  const int x0 = blockIdx.x * FX;
+  const int y = blockIdx.y;
+  const int cblocks = (C + FCB - 1) / FCB;
+  const int b = blockIdx.z / cblocks;
+  const int c0 = (blockIdx.z % cblocks) * FCB;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int grp = lane >> 2;
+  const int tig = lane & 3;
+  const int two_d = 2 * d;
+  const int k = two_d + 1;
+  const int plane = H * W;
+
+  const float* g_b = g + static_cast<size_t>(b) * k * k * plane;
+  const __nv_bfloat16* fm_b = fm0 + static_cast<size_t>(b) * plane * C;
+  const int wx0 = x0 - d + 1;  // first staged source column
+  const uint32_t ring = smem_u32(smem_mma);
+
+  // the source row of di is on the map and on the stride phase
+  auto live = [&](int di) {
+    const int s = y - di + d;
+    return s >= 0 && s < H && window_ok(s, di, d, stride, H);
+  };
+
+  // Staging offsets, the same for every di. Window: thread tid copies the
+  // 16-byte channel unit `seg` of window pixels jw0 + 8 n (their column
+  // offsets in 16-byte units, -1 off the map). Band: entry e = tid + 128 n
+  // is (tile t, row m, dj), band column m - dj + 2d - 1, read from g's plane
+  // dj at source column x0 + 16 t + m + d - dj (-1: masked, zero-filled).
+  const int seg = tid % FSEGS;
+  const int jw0 = tid / FSEGS;
+  const int c16 = C / 8;
+  const int cu = c0 / 8 + seg;
+  int coff[NW];
+#pragma unroll
+  for (int n = 0; n < NW; ++n) {
+    const int col = wx0 + jw0 + 8 * n;
+    coff[n] = (col >= 0 && col < W) ? col * c16 + cu : -1;
+  }
+  int bdst[NB], gsrc[NB];
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const int e = tid + FTHREADS * n;
+    const int m = e & 15;
+    const int dj = (e >> 4) % two_d;
+    const int t = (e >> 4) / two_d;
+    const int col = x0 + 16 * t + m + d - dj;
+    const bool ok = col >= 0 && col < W && window_ok(col, dj, d, stride, W);
+    bdst[n] = e < 2 * 16 * two_d ? BAND_OFF + ((16 * t + m) * GP + m - dj + two_d - 1) * 4 : -1;
+    gsrc[n] = ok ? dj * plane + col : -1;
+  }
+
+  // the band buffers' entries off the band stay zero; cp.async rewrites the
+  // band (masked entries as zeros) for every di
+  for (int slot = 0; slot < FSTAGES; ++slot) {
+    float* band = reinterpret_cast<float*>(smem_mma + slot * SLOT + BAND_OFF);
+    for (int e = tid; e < 2 * 16 * GP; e += FTHREADS) band[e] = 0.f;
+  }
+
+  // FM0's source window and the banded gradient of di into ring slot `slot`
+  auto load = [&](int di, int slot) {
+    if (!live(di)) return;
+    const int s = y - di + d;
+    const uint32_t slot_base = ring + slot * SLOT;
+    const uint4* row = reinterpret_cast<const uint4*>(fm_b + static_cast<size_t>(s) * W * C);
+    const bool c_in = cu < c16;
+#pragma unroll
+    for (int n = 0; n < NW; ++n) {
+      const bool valid = c_in && coff[n] >= 0;
+      cp_async16(slot_base + ((jw0 + 8 * n) * FPITCH + seg * 8) * 2,
+                 valid ? row + coff[n] : row, valid);
+    }
+    const float* g_row = g_b + static_cast<size_t>(di) * k * plane + static_cast<size_t>(s) * W;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      if (bdst[n] < 0) continue;
+      cp_async4(slot_base + bdst[n], gsrc[n] >= 0 ? g_row + gsrc[n] : g, gsrc[n] >= 0);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[t][n][e] = 0.f;
+
+  for (int st = 0; st < FSTAGES - 1; ++st) {
+    if (st < two_d) load(st, st);
+    cp_async_commit();
+  }
+  for (int di = 0; di < two_d; ++di) {
+    cp_async_wait<FSTAGES - 2>();
+    __syncthreads();  // di landed; slot (di - 1) % FSTAGES is free
+    const int next = di + FSTAGES - 1;
+    if (next < two_d) load(next, next % FSTAGES);
+    cp_async_commit();
+    if (!live(di)) continue;  // uniform over the block
+    const __nv_bfloat16* win =
+        reinterpret_cast<const __nv_bfloat16*>(smem_mma + (di % FSTAGES) * SLOT);
+    const float* band = reinterpret_cast<const float*>(smem_mma + (di % FSTAGES) * SLOT + BAND_OFF);
+    // window rows [16 kb, 16 kb + 16) are k-step kb of tile 0 and k-step
+    // kb - 1 of tile 1
+#pragma unroll
+    for (int kb = 0; kb <= KS; ++kb) {
+      uint32_t bf[4][2];
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, win + (16 * kb + (lane & 7) + ((lane >> 3) & 1) * 8) * FPITCH +
+                                 32 * warp + 16 * p + (lane >> 4) * 8);
+        bf[2 * p][0] = r[0];
+        bf[2 * p][1] = r[1];
+        bf[2 * p + 1][0] = r[2];
+        bf[2 * p + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int kstep = kb - t;
+        if (kstep < 0 || kstep >= KS) continue;
+        const float* a0 = band + (16 * t + grp) * GP + 16 * kstep + 2 * tig;
+        const uint32_t a[4] = {bf16x2(a0), bf16x2(a0 + 8 * GP), bf16x2(a0 + 8),
+                               bf16x2(a0 + 8 * GP + 8)};
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma_bf16(acc[t][n], a, bf[n][0], bf[n][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring
+
+  // accumulator (m, n) of tile t is column x0 + 16 t + m, channel
+  // c0 + 32 w + n: round to bf16 into a (FX, FCB) tile, then 16-byte stores
+  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem_mma);
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<__nv_bfloat162*>(
+            tile + (16 * t + grp + 8 * h) * FPITCH + 32 * warp + 8 * n + 2 * tig) =
+            __floats2bfloat162_rn(acc[t][n][2 * h], acc[t][n][2 * h + 1]);
+  __syncthreads();
+
+  __nv_bfloat16* out_row = out + (static_cast<size_t>(b) * H + y) * W * C;
+  for (int e = tid; e < FX * FSEGS; e += FTHREADS) {
+    const int xl = e / FSEGS;
+    const int x = x0 + xl;
+    const int c = c0 + (e % FSEGS) * 8;
+    if (x >= W || c >= C) continue;
+    const __nv_bfloat16* src = tile + xl * FPITCH + (e % FSEGS) * 8;
+    __nv_bfloat16* dst = out_row + static_cast<size_t>(x) * C + c;
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  }
+}
+
+template <int KS>
+int launch_fm1_mma_ks(const void* g, const void* fm0, void* out, int B, int H,
+                      int W, int C, int d, int stride, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(FSTAGES) * fm1_slot_bytes(KS);
+  cudaError_t err = cudaFuncSetAttribute(
+      corr_bwd_fm1_mma_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((W + FX - 1) / FX, H, B * ((C + FCB - 1) / FCB));
+  corr_bwd_fm1_mma_kernel<KS><<<grid, FTHREADS, smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const __nv_bfloat16*>(fm0),
+      static_cast<__nv_bfloat16*>(out), H, W, C, d, stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_fm1_mma(const void* g, const void* fm0, void* out, int B, int H,
+                   int W, int C, int d, int stride, cudaStream_t stream) {
+  // whole, aligned 16-byte channel units; int offsets into one g batch item
+  // (k^2 planes) and one map row
+  if (C % 8 != 0 || reinterpret_cast<uintptr_t>(fm0) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      static_cast<long long>(2 * d + 1) * (2 * d + 1) * H * W >= (1LL << 31) ||
+      static_cast<long long>(W) * C >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (fm1_ks(d)) {  // d 1-8, 9-16, 17-24
+    case 2: return launch_fm1_mma_ks<2>(g, fm0, out, B, H, W, C, d, stride, stream);
+    case 3: return launch_fm1_mma_ks<3>(g, fm0, out, B, H, W, C, d, stride, stream);
+    case MAX_KS: return launch_fm1_mma_ks<MAX_KS>(g, fm0, out, B, H, W, C, d, stride, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// 0, or the CUDA error for arguments no kernel takes (cblk: channels per
+// block, which sets the grid's z extent)
+int check_args(int B, int H, int W, int C, int d_max, int stride, int cblk) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || d_max <= 0 || stride <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (static_cast<long long>(B) * ((C + CCH - 1) / CCH) > 65535 || H > 65535)
+  if (static_cast<long long>(B) * ((C + cblk - 1) / cblk) > 65535 || H > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16, kFm1>(g, fm, out, B, H, W, C, d_max, stride, s);
-  return launch<float, kFm1>(g, fm, out, B, H, W, C, d_max, stride, s);
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) one block needs at this d_max; the wrapper checks
-// it against the card's limit before launching.
-size_t d2t_corr_bwd_smem_bytes(int d_max) {
+// Shared memory (bytes) one block of each kernel needs at this d_max and
+// dtype; the wrapper checks it against the card's limit before launching.
+size_t d2t_corr_bwd_fm0_smem_bytes(int d_max, int is_bf16) {
+  (void)is_bf16;
   return make_geometry(d_max).smem_bytes;
+}
+
+size_t d2t_corr_bwd_fm1_smem_bytes(int d_max, int is_bf16) {
+  return is_bf16 ? static_cast<size_t>(FSTAGES) * fm1_slot_bytes(fm1_ks(d_max))
+                 : make_geometry(d_max).smem_bytes;
 }
 
 // g: (B, (2d+1)^2, H, W) float32 contiguous. fm1, out: (B, H, W, C)
@@ -242,14 +571,25 @@ size_t d2t_corr_bwd_smem_bytes(int d_max) {
 int d2t_corr_bwd_fm0(const void* g, const void* fm1, void* out, int B, int H,
                      int W, int C, int d_max, int stride, int is_bf16,
                      void* stream) {
-  return dispatch<false>(g, fm1, out, B, H, W, C, d_max, stride, is_bf16, stream);
+  if (const int err = check_args(B, H, W, C, d_max, stride, CCH)) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, false>(g, fm1, out, B, H, W, C, d_max, stride, s);
+  return launch<float, false>(g, fm1, out, B, H, W, C, d_max, stride, s);
 }
 
-// As d2t_corr_bwd_fm0, from fm0 to dFM1.
+// As d2t_corr_bwd_fm0, from fm0 to dFM1: bf16 on the tensor cores, f32 on
+// the CUDA cores.
 int d2t_corr_bwd_fm1(const void* g, const void* fm0, void* out, int B, int H,
                      int W, int C, int d_max, int stride, int is_bf16,
                      void* stream) {
-  return dispatch<true>(g, fm0, out, B, H, W, C, d_max, stride, is_bf16, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    if (const int err = check_args(B, H, W, C, d_max, stride, FCB)) return err;
+    return launch_fm1_mma(g, fm0, out, B, H, W, C, d_max, stride, s);
+  }
+  if (const int err = check_args(B, H, W, C, d_max, stride, CCH)) return err;
+  return launch<float, true>(g, fm0, out, B, H, W, C, d_max, stride, s);
 }
 
 }  // extern "C"

@@ -15,16 +15,18 @@ from detect_to_track_tpu_torch.ops import correlation
 
 pytestmark = pytest.mark.gpu
 
-# (B, H, W, C, d_max, stride, dtype)
+# (B, H, W, C, d_max, stride); each runs in bf16 (tensor-core kernels) and
+# f32 (CUDA-core kernels)
 CORR_CASES = [
-    (2, 38, 75, 384, 8, 1, torch.float32),  # the tracker's map, C past a chunk multiple
-    (2, 38, 75, 384, 8, 2, torch.bfloat16),
-    (2, 38, 75, 5, 2, 1, torch.float32),
-    (1, 5, 7, 3, 8, 1, torch.float32),  # map smaller than the window
-    (3, 17, 40, 33, 3, 3, torch.bfloat16),  # stride 3, C not a multiple of 16
-    (1, 20, 33, 64, 12, 1, torch.float32),  # wider window: more warps per block
-    (1, 9, 64, 16, 1, 1, torch.float32),  # d_max 1: one warp
+    (2, 38, 75, 384, 8, 1),  # the tracker's map, C past a chunk multiple
+    (2, 38, 75, 384, 8, 2),
+    (2, 38, 75, 5, 2, 1),  # C not a multiple of 8: scalar staging
+    (1, 5, 7, 3, 8, 1),  # map smaller than the window
+    (3, 17, 40, 33, 3, 3),  # stride 3, C not a multiple of 16
+    (1, 20, 33, 64, 12, 1),  # wider window: more warps per block
+    (1, 9, 64, 16, 1, 1),  # d_max 1: one warp
 ]
+DTYPES = [torch.bfloat16, torch.float32]
 
 
 @pytest.fixture
@@ -41,15 +43,17 @@ def _maps(shape, dtype, device, seed=0):
 
 def _assert_matches_plain(got, fm0, fm1, d_max, stride, layout):
     """the kernel and the plain version sum the same f32 products (bf16
-    products are exact in f32) in another order: f32 rounding of a C-term
-    sum, relative to the largest magnitude."""
+    products are exact in f32; the tensor cores' f32 accumulation included)
+    in another order: f32 rounding of a C-term sum, relative to the largest
+    magnitude."""
     ref = correlation.pointwise_correlation(fm0, fm1, d_max, stride, impl="torch", layout=layout)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5 * ref.abs().max().item() + 1e-6)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("case", CORR_CASES, ids=str)
-def test_correlation_kernel_matches_plain(cuda, case):
-    b, h, w, c, d_max, stride, dtype = case
+def test_correlation_kernel_matches_plain(cuda, case, dtype):
+    b, h, w, c, d_max, stride = case
     fm0, fm1 = _maps((b, h, w, c), dtype, cuda)
     before = correlation.corr_fwd_cuda.launches
     got = correlation.pointwise_correlation(fm0, fm1, d_max, stride, impl="cuda", layout="k2hw")
@@ -73,23 +77,26 @@ def test_correlation_wrapper_on_card(cuda):
 
 # the forward's cases plus H = 48, the height the TPU package runs through
 # its halo'd multi-tile dFM1 kernel (K4)
-BWD_CASES = CORR_CASES + [(2, 48, 75, 384, 8, 1, torch.bfloat16), (1, 48, 40, 64, 8, 2, torch.float32)]
+BWD_CASES = CORR_CASES + [(2, 48, 75, 384, 8, 1), (1, 48, 40, 64, 8, 2)]
 
 
 def _assert_grad_matches_plain(got, ref):
     """f32: both sum the same f32 products in another order, tolerance
     1e-5 of the largest magnitude. bf16: each rounds its f32 sum to bf16
-    once, so they may differ by one bf16 rounding (2^-8 relative): 8e-3 of
-    the largest magnitude."""
+    once, so they may differ by one bf16 rounding (2^-8 relative), and the
+    tensor-core dFM1 kernel rounds g to bf16 as the TPU kernel does (2^-9
+    per term, ~1e-3 of the largest magnitude over a sum): 8e-3 of the
+    largest magnitude."""
     assert got.dtype == ref.dtype and got.shape == ref.shape
     scale = ref.float().abs().max().item()
     rel = 8e-3 if ref.dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), ref.float(), rtol=0, atol=rel * scale + 1e-6)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
 @pytest.mark.parametrize("case", BWD_CASES, ids=str)
-def test_correlation_backward_kernels_match_plain(cuda, case):
-    b, h, w, c, d_max, stride, dtype = case
+def test_correlation_backward_kernels_match_plain(cuda, case, dtype):
+    b, h, w, c, d_max, stride = case
     fm0, fm1 = _maps((b, h, w, c), dtype, cuda)
     k2 = (2 * d_max + 1) ** 2
     g = torch.from_numpy(np.random.default_rng(2).standard_normal((b, k2, h, w), dtype=np.float32)).to(cuda)

@@ -371,3 +371,16 @@ def test_correlation_errors(rng):
         with pytest.raises(ValueError, match="CUDA tensors"):
             fn(torch.zeros(1, 25, 6, 6), fm, 2, 1)
     assert [fn.launches for fn in bwd] == counts
+
+
+@pytest.mark.parametrize("c, offset", [(5, 0), (16, 0), (16, 1)])
+def test_tensor_core_map_layout(c, offset):
+    """the bf16 maps the tensor-core kernels stage: C zero-padded to whole
+    16-byte units and 16-byte aligned, values unchanged; an aligned map of
+    whole units passes through without a copy."""
+    flat = torch.arange(2 * 3 * 4 * c + offset, dtype=torch.float32).to(torch.bfloat16)
+    fm = flat[offset:].view(2, 3, 4, c)  # offset 1: 2 bytes off alignment
+    got = correlation._tensor_core_map(fm)
+    assert got.is_contiguous() and got.shape[-1] % 8 == 0 and got.data_ptr() % 16 == 0
+    assert torch.equal(got[..., :c], fm) and not got[..., c:].any()
+    assert (got is fm) == (c % 8 == 0 and offset == 0)
