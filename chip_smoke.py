@@ -10,8 +10,9 @@ Phases, each printing a line:
   3. kernels: each kernel against its plain PyTorch version on the card at
      the shapes the main path gives it, with its time, the plain version's
      time and the least time the card could take (the bound); the bf16
-     tensor-core kernels also at d_max 1 and 12, stride 3, C = 33 and a
-     5x7 map, with the bytes they stage from L2.
+     tensor-core kernels (K1 and both backward kernels) also at d_max 1
+     and 12, stride 3, C = 33 and a 5x7 map, with the bytes they stage
+     from L2.
   4. slice: the full-width detect-and-track path (cfg/default.yaml: ResNet-50,
      608x1200, bf16) with random weights from a seed, through
      Detector.__call__ and Detector.detect_pairs on a batch of BATCH_SIZE
@@ -90,7 +91,8 @@ def phase_build():
     """compile every kernel library, print each kernel's registers, stack
     and spills from ptxas, and count each kernel's tensor-core (HMMA /
     HGMMA) instructions in the SASS (cuobjdump). The bf16 kernels of the
-    forward and of dFM1 must have some."""
+    forward and of both backward gradients (every `*mma_kernel`) must have
+    some."""
     import re
 
     from detect_to_track_tpu_torch.ops import _build
@@ -177,9 +179,11 @@ def staged_bytes(kernel, b, h, w, c, d, stride):
     """bytes a bf16 tensor-core kernel copies from L2 into shared memory in
     one call, from its staging geometry (corr_fwd.cu, corr_bwd.cu): every
     live fm1 window row (16 + 8 NT columns) and the fm0 tile per 32 output
-    columns of a row for K1; the live source row's window (16 + 16 KS
-    columns) and the 2 x 16 x 2d band values of g per 32 output columns and
-    128 channels for dFM1. Each map byte is re-read about 2d times."""
+    columns of a row for K1; for each live (output row, di) the map row's
+    window (16 + 16 KS columns) and the 2 x 16 x 2d band values of g per 32
+    output columns and 128 channels for the backward kernels (dFM1: di is
+    live on the source row y - di + d; dFM0: on the output row). Each map
+    byte is re-read about 2d times."""
     def live(p, r):  # correlation_window_masks along the height
         src = p + r - d
         return r < 2 * d and 0 <= src < h and (src - max(0, p - d)) % stride == 0
@@ -190,7 +194,10 @@ def staged_bytes(kernel, b, h, w, c, d, stride):
         rows = sum(live(i, r) for i in range(h) for r in range(2 * d))
         return b * tiles * (rows * (16 + 8 * nt) + h * 32) * c * 2
     ks = -(-(15 + 2 * d) // 16)
-    rows = sum(0 <= y - r + d < h and live(y - r + d, r) for y in range(h) for r in range(2 * d))
+    if kernel == "corr_bwd_fm1":
+        rows = sum(0 <= y - r + d < h and live(y - r + d, r) for y in range(h) for r in range(2 * d))
+    else:
+        rows = sum(live(y, r) for y in range(h) for r in range(2 * d))
     return b * tiles * rows * ((16 + 16 * ks) * c * 2 + -(-c // 128) * 2 * 16 * 2 * d * 4)
 
 
@@ -283,14 +290,14 @@ def phase_bwd_kernels(pairs: int):
             scale = ref.float().abs().max().item()
             # f32: the same f32 products summed in another order; bf16: each
             # side rounds its f32 sum to bf16 once, one bf16 rounding apart,
-            # and the tensor-core dFM1 rounds g to bf16 as the TPU kernel does
+            # and both tensor-core kernels round g to bf16 as the TPU kernels do
             tol = (8e-3 if dt == torch.bfloat16 else 1e-5) * scale + 1e-6
             ok = err <= tol and got.shape == ref.shape and got.dtype == ref.dtype
             ms = cuda_time_ms(lambda: kernel(g, fm, d, stride))
             plain_ms = cuda_time_ms(lambda: plain(g, fm, d, stride), iters=3, warmup=1)
             bound, by = corr_bound_ms(pairs, h, w, c, d, fm.element_size(), dt == torch.float32)
             staged = ""
-            if kname == "corr_bwd_fm1" and dt == torch.bfloat16:
+            if dt == torch.bfloat16:
                 nbytes = staged_bytes(kname, pairs, h, w, c, d, stride)
                 staged = f" staged {nbytes / 1e6:.1f} MB = {nbytes / ms / 1e9:.2f} TB/s"
             log(f"[kernels] {kname} {h}x{w} C={c} d={d} {name} stride={stride}: max_abs_err={err:.3e} "

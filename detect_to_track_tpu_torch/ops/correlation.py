@@ -12,10 +12,10 @@ PyTorch's current stream:
 - `csrc/corr_bwd.cu`, the backward: `corr_bwd_fm0` (port of
   `_bwd_fm0_kernel`) and `corr_bwd_fm1` (port of both
   `_bwd_fm1_single_tile_kernel` and `_bwd_fm1_kernel`, for any height).
-The maps' dtype picks the kernel: bf16 maps run the forward and dFM1 as
-banded products on the tensor cores (`mma.sync`, f32 sums); f32 maps, and
-dFM0 in both dtypes, run the CUDA-core kernels (f32 FMAs), because the f32
-gate of 1e-5 of the largest magnitude rules out bf16 tensor cores.
+The maps' dtype picks the kernel: bf16 maps run the forward and both
+backward gradients as banded products on the tensor cores (`mma.sync`, f32
+sums); f32 maps run the CUDA-core kernels (f32 FMAs), because the f32 gate
+of 1e-5 of the largest magnitude rules out bf16 tensor cores.
 A CUDA tensor launches them or raises; only CPU tensors take the plain
 version, whose autograd is the plain backward.
 """
@@ -57,9 +57,8 @@ def _corr_bwd_lib() -> ctypes.CDLL:
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
-    for fn in (lib.d2t_corr_bwd_fm0_smem_bytes, lib.d2t_corr_bwd_fm1_smem_bytes):
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_size_t
+    lib.d2t_corr_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.d2t_corr_bwd_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -146,10 +145,10 @@ def _corr_bwd_launch(fn_name: str, g: torch.Tensor, fm: torch.Tensor, d_max: int
         )
     is_bf16 = int(fm.dtype == torch.bfloat16)
     lib = _corr_bwd_lib()
-    _check_smem(getattr(lib, fn_name + "_smem_bytes")(d_max, is_bf16), d_max)
+    _check_smem(lib.d2t_corr_bwd_smem_bytes(d_max, is_bf16), d_max)
     g = g.to(torch.float32).contiguous()
     fm = fm.contiguous()
-    if is_bf16 and fn_name == "d2t_corr_bwd_fm1":  # the tensor-core kernel
+    if is_bf16:  # the tensor-core kernels
         fm = _tensor_core_map(fm)
     out = torch.empty_like(fm)
     with torch.cuda.device(fm.device):
@@ -166,7 +165,9 @@ def _corr_bwd_launch(fn_name: str, g: torch.Tensor, fm: torch.Tensor, d_max: int
 def corr_bwd_fm0_cuda(g: torch.Tensor, fm1: torch.Tensor, d_max: int, stride: int) -> torch.Tensor:
     """launch the dFM0 kernel: the forward's cotangent g (B, (2d+1)^2, H, W)
     and fm1 (B, H, W, C), bf16 or f32 CUDA tensors -> dFM0 (B, H, W, C) in
-    fm1's dtype. Counts each launch in `corr_bwd_fm0_cuda.launches`."""
+    fm1's dtype (bf16 on the tensor cores, g rounded to bf16 as the TPU
+    kernel does; f32 on the CUDA cores). Counts each launch in
+    `corr_bwd_fm0_cuda.launches`."""
     out = _corr_bwd_launch("d2t_corr_bwd_fm0", g, fm1, d_max, stride)
     corr_bwd_fm0_cuda.launches += 1
     return out

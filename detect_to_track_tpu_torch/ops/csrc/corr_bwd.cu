@@ -23,53 +23,66 @@
 // 6 / 12 us on bf16 tensor cores. Bytes bound it; on the CUDA cores the
 // arithmetic (90 / 180 us at 67 TFLOP/s f32) would.
 //
-// Which kernel runs: corr_bwd_fm1 in bf16 is corr_bwd_fm1_mma_kernel, on the
-// tensor cores; corr_bwd_fm0 (both dtypes) and corr_bwd_fm1 in f32 are
-// corr_bwd_kernel, on the CUDA cores. The f32 gate (1e-5 of the largest
-// magnitude) rules out bf16 tensor cores, and TF32 would need a three-pass
-// split to hold it; corr_bwd_fm0 is redesigned on its own.
+// Which kernel runs: bf16 maps run both gradients on the tensor cores,
+// corr_bwd_mma_kernel<KS, kFm1>; f32 maps run corr_bwd_kernel<kFm1> on the
+// CUDA cores. The f32 gate (1e-5 of the largest magnitude) rules out bf16
+// tensor cores, and TF32 would need a three-pass split to hold it.
 //
-// corr_bwd_fm1_mma_kernel, banded products (the form of the TPU's K3). Fix
-// the output row y, a live row displacement di (source row s = y - di + d;
-// skipped for the whole block when s is off the map or off the stride
-// phase) and 16 output columns x0..x0+15. Then
-//   dFM1[b, y, x0 + m, c] += sum_j G[m, j] * FM0[b, s, x0 - d + 1 + j, c]
-// over K = 16 * ceil((15 + 2d) / 16) source columns j, with the masked
-// banded gradient G[m, j] = mask * g[b, di*k + (m - j + 2d - 1), s,
-// x0 - d + 1 + j] for 0 <= m - j + 2d - 1 < 2d, else 0.
-// - mma.sync.m16n8k16 (bf16 in, f32 accumulate). FM0's window is K-major
-//   with the channels (N) contiguous, so B comes from shared memory by
+// corr_bwd_mma_kernel, banded products (the form of the TPU kernels, which
+// build a banded gradient per row displacement and do one matmul). Fix the
+// output row y, a live row displacement di and 16 output columns
+// x0..x0+15. Both gradients are then a product of a 16 x K banded gradient
+// G with a window of K map columns (channels contiguous), over K = 16 *
+// ceil((15 + 2d) / 16) columns:
+// - dFM0 (K2): out[b, y, x0 + m, c] += sum_n G[m, n] * FM1[b, r, x0 - d + n, c]
+//   with the map row r = y + di - d, live when the output row's window mask
+//   holds (r on the map and on the stride phase), and G[m, n] = mask *
+//   g[b, di*k + (n - m), y, x0 + m] for 0 <= n - m < 2d, else 0: the output
+//   pixel's own g values, plane dj into band column m + dj.
+// - dFM1 (K3/K4): out[b, y, x0 + m, c] += sum_j G[m, j] * FM0[b, s, x0 - d
+//   + 1 + j, c] with the source row s = y - di + d, live when s is on the
+//   map and the source row's mask holds, and G[m, j] = mask * g[b, di*k +
+//   (m - j + 2d - 1), s, x0 - d + 1 + j] for 0 <= m - j + 2d - 1 < 2d: the
+//   diagonal of the source pixels' g values, plane dj into band column
+//   m - dj + 2d - 1.
+// Block-uniform liveness skips a displacement for the whole block. The two
+// instantiations differ only in the map row, the window origin, the
+// liveness test and the band gather (offsets computed once per block).
+// - mma.sync.m16n8k16 (bf16 in, f32 accumulate). The window is K-major with
+//   the channels (N) contiguous, so B comes from shared memory by
 //   ldmatrix.trans. G is built per di from g: cp.async copies the 2d band
 //   values of each row (4 bytes each, zero-filled where masked) as f32 into
 //   a band buffer whose other entries stay zero, and the A fragments are
-//   rounded to bf16 as they are read, as the TPU kernel rounds its banded
+//   rounded to bf16 as they are read, as the TPU kernels round their banded
 //   gradient (ext_t = bf16). wgmma needs 64-row tiles, four times the
 //   16-wide band, so mma.sync keeps the tile at the band's width.
 // - one block of 4 warps per (b, y, 32 output columns, 128 channels); warp
 //   w owns 32 channels of both m16 tiles (32 f32 sums per lane). Both m16
-//   tiles share one staged source window of 16 + K columns.
-// - per di, the FM0 window (16-byte cp.async, zero-filled off the map and
+//   tiles share one staged window of 16 + K columns.
+// - per di, the map window (16-byte cp.async, zero-filled off the map and
 //   past C; the wrapper pads C to a multiple of 8) and the band stream
 //   through a 3-slot ring in shared memory, so the next displacements load
 //   while the current one multiplies. Each thread's copy offsets are
-//   computed once per block: only the source row changes with di. A staged
+//   computed once per block: only the map row changes with di. A staged
 //   pixel is 136 bf16 (272 bytes, 17 16-byte units): the 8 rows of an
 //   ldmatrix phase fall on 8 bank groups. KS = K / 16 is a template
 //   parameter (2-4), so bf16 takes d_max <= 24.
 // - the sums leave through shared memory as 16-byte stores per 8 channels.
-// One kernel takes any H: the TPU split between K3 (H <= 40) and K4 is a
-// VMEM tiling choice.
+// What bounds it on the card: the window is staged once per (output row,
+// live di), so each map byte is read from L2 about 2d times (0.75 / 1.50 GB
+// at C = 1024 / 2048 at the working point); the L2 -> shared-memory rate,
+// not the 60-107 MB of device memory, sets its time.
 //
-// corr_bwd_kernel (CUDA cores, as first written):
+// corr_bwd_kernel (f32, CUDA cores):
 // - one block of 4 warps per (b, output row, 32 output columns, 64
 //   channels); a lane owns 2 channels (c and c + 32) of 8 adjacent output
 //   columns, so 16 f32 sums sit in registers, and each warp owns 8 columns;
 // - per row displacement di (skipped, block-uniformly, when the source row
 //   is outside the map or off the stride phase) the block stages in shared
-//   memory, as f32: the map row's window of 32 + 8*ceil(2d/8) - 1 columns
-//   x 64 channels, and the 2d x 32 gradient values already masked and laid
-//   out by OUTPUT column (for dFM1 the source column x - dj + d differs per
-//   dj, so the diagonal is gathered once while staging);
+//   memory: the map row's window of 32 + 8*ceil(2d/8) - 1 columns x 64
+//   channels, and the 2d x 32 gradient values already masked and laid out
+//   by OUTPUT column (for dFM1 the source column x - dj + d differs per dj,
+//   so the diagonal is gathered once while staging);
 // - per chunk of 8 column displacements a lane reads a sliding window of
 //   15 map values per channel and 2 x 16 bytes of gradient (a broadcast: the
 //   warp shares its columns) for 128 FMAs;
@@ -107,19 +120,6 @@ Geometry make_geometry(int d) {
   return g;
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // correlation_window_masks: the source position p + r - d lies in the map,
 // r < 2d, and it is on the stride phase counted from max(0, p - d).
 __device__ __forceinline__ bool window_ok(int p, int r, int d, int stride,
@@ -130,10 +130,10 @@ __device__ __forceinline__ bool window_ok(int p, int r, int d, int stride,
 }
 
 // kFm1 = false: dFM0 from FM1 (K2). kFm1 = true: dFM1 from FM0 (K3/K4).
-template <typename T, bool kFm1>
+template <bool kFm1>
 __global__ void __launch_bounds__(THREADS)
-    corr_bwd_kernel(const float* __restrict__ g, const T* __restrict__ fm,
-                    T* __restrict__ out, int H, int W, int C, int d,
+    corr_bwd_kernel(const float* __restrict__ g, const float* __restrict__ fm,
+                    float* __restrict__ out, int H, int W, int C, int d,
                     int stride, int nch, int window) {
   extern __shared__ float smem[];
   float* ms = smem;                 // [window][CCH] map row window
@@ -153,7 +153,7 @@ __global__ void __launch_bounds__(THREADS)
 
   const size_t plane = static_cast<size_t>(H) * W;
   const float* g_b = g + static_cast<size_t>(b) * k * k * plane;
-  const T* fm_b = fm + static_cast<size_t>(b) * plane * C;
+  const float* fm_b = fm + static_cast<size_t>(b) * plane * C;
   // first staged map column: dFM0 reads FM1 at x + dj - d, dFM1 reads FM0 at
   // the source column x - dj + d
   const int wx0 = kFm1 ? x0 + d - (ndj - 1) : x0 - d;
@@ -171,13 +171,11 @@ __global__ void __launch_bounds__(THREADS)
     if (src_i < 0 || src_i >= H || !window_ok(src_i, di, d, stride, H))
       continue;  // uniform over the block
     __syncthreads();  // the previous displacement's reads are done
-    const T* row = fm_b + static_cast<size_t>(map_row) * W * C;
+    const float* row = fm_b + static_cast<size_t>(map_row) * W * C;
     for (int e = tid; e < window * CCH; e += THREADS) {
       const int col = wx0 + e / CCH;
       const int c = c0 + e % CCH;
-      ms[e] = (col >= 0 && col < W && c < C)
-                  ? to_float(row[static_cast<size_t>(col) * C + c])
-                  : 0.f;
+      ms[e] = (col >= 0 && col < W && c < C) ? row[static_cast<size_t>(col) * C + c] : 0.f;
     }
     const float* g_row = g_b + static_cast<size_t>(di) * k * plane +
                          static_cast<size_t>(src_i) * W;
@@ -221,7 +219,7 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  T* out_row = out + (static_cast<size_t>(b) * H + y) * W * C;
+  float* out_row = out + (static_cast<size_t>(b) * H + y) * W * C;
 #pragma unroll
   for (int jj = 0; jj < JB; ++jj) {
     const int x = x0 + warp * JB + jj;
@@ -229,27 +227,27 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int ch = 0; ch < CT; ++ch) {
       const int c = c0 + ch * 32 + lane;
-      if (c < C) out_row[static_cast<size_t>(x) * C + c] = from_float<T>(acc[jj][ch]);
+      if (c < C) out_row[static_cast<size_t>(x) * C + c] = acc[jj][ch];
     }
   }
 }
 
-template <typename T, bool kFm1>
+template <bool kFm1>
 int launch(const void* g, const void* fm, void* out, int B, int H, int W,
            int C, int d, int stride, cudaStream_t stream) {
   const Geometry geo = make_geometry(d);
   cudaError_t err = cudaFuncSetAttribute(
-      corr_bwd_kernel<T, kFm1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      corr_bwd_kernel<kFm1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(geo.smem_bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + TJ - 1) / TJ, H, B * ((C + CCH - 1) / CCH));
-  corr_bwd_kernel<T, kFm1><<<grid, THREADS, geo.smem_bytes, stream>>>(
-      static_cast<const float*>(g), static_cast<const T*>(fm),
-      static_cast<T*>(out), H, W, C, d, stride, geo.nch, geo.window);
+  corr_bwd_kernel<kFm1><<<grid, THREADS, geo.smem_bytes, stream>>>(
+      static_cast<const float*>(g), static_cast<const float*>(fm),
+      static_cast<float*>(out), H, W, C, d, stride, geo.nch, geo.window);
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- corr_bwd_fm1 in bf16: banded products on the tensor cores ----
+// ---- bf16: banded products on the tensor cores ----
 
 constexpr int FX = 32;              // output columns per block: two m16 tiles
 constexpr int FCB = 128;            // channels per block: 4 warps x 32
@@ -261,15 +259,15 @@ constexpr int MAX_KS = 4;           // k16 steps per m16 tile: d_max <= 24
 constexpr int kMaxSmemBytes = 232448;  // shared memory one SM gives blocks
 
 // k16 steps per m16 tile: the band of a 16-row tile spans 15 + 2d columns
-int fm1_ks(int d) { return (15 + 2 * d + 15) / 16; }
+int mma_ks(int d) { return (15 + 2 * d + 15) / 16; }
 
-// per ring slot: the source window (16 + 16 KS pixels x FPITCH bf16), then
+// per ring slot: the map window (16 + 16 KS pixels x FPITCH bf16), then
 // the band (2 tiles x 16 rows x (16 KS + 8) f32; the pitch is 8 or 24
 // modulo 32 banks, so a fragment's 8-byte reads do not conflict)
-__host__ __device__ constexpr int fm1_window(int ks) { return 16 + 16 * ks; }
-__host__ __device__ constexpr int fm1_gpitch(int ks) { return 16 * ks + 8; }
-__host__ __device__ constexpr int fm1_slot_bytes(int ks) {
-  return fm1_window(ks) * FPITCH * 2 + 2 * 16 * fm1_gpitch(ks) * 4;
+__host__ __device__ constexpr int mma_window(int ks) { return 16 + 16 * ks; }
+__host__ __device__ constexpr int mma_gpitch(int ks) { return 16 * ks + 8; }
+__host__ __device__ constexpr int mma_slot_bytes(int ks) {
+  return mma_window(ks) * FPITCH * 2 + 2 * 16 * mma_gpitch(ks) * 4;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -331,16 +329,16 @@ __device__ __forceinline__ uint32_t bf16x2(const float* p) {
 
 // As many blocks per SM as the ring lets in (4 at KS = 2), and registers up
 // to what that occupancy allows: left to itself, ptxas held the KS = 2
-// kernel at 72 registers with a spill, and it ran 14% slower on an H100.
-template <int KS>
-__global__ void __launch_bounds__(FTHREADS, kMaxSmemBytes / (FSTAGES * fm1_slot_bytes(KS)))
-    corr_bwd_fm1_mma_kernel(const float* __restrict__ g,
-                            const __nv_bfloat16* __restrict__ fm0,
-                            __nv_bfloat16* __restrict__ out, int H, int W,
-                            int C, int d, int stride) {
-  constexpr int WINDOW = fm1_window(KS);  // staged source columns
-  constexpr int GP = fm1_gpitch(KS);
-  constexpr int SLOT = fm1_slot_bytes(KS);
+// dFM1 kernel at 72 registers with a spill, and it ran 14% slower on an H100.
+template <int KS, bool kFm1>
+__global__ void __launch_bounds__(FTHREADS, kMaxSmemBytes / (FSTAGES * mma_slot_bytes(KS)))
+    corr_bwd_mma_kernel(const float* __restrict__ g,
+                        const __nv_bfloat16* __restrict__ fm,
+                        __nv_bfloat16* __restrict__ out, int H, int W, int C,
+                        int d, int stride) {
+  constexpr int WINDOW = mma_window(KS);  // staged map columns
+  constexpr int GP = mma_gpitch(KS);
+  constexpr int SLOT = mma_slot_bytes(KS);
   constexpr int BAND_OFF = WINDOW * FPITCH * 2;  // bytes into a slot
   constexpr int NW = WINDOW / (FTHREADS / FSEGS);  // window pixels per thread
   // band entries per thread: 2 tiles x 16 rows x 2d, d <= 8 KS - 8
@@ -362,21 +360,30 @@ __global__ void __launch_bounds__(FTHREADS, kMaxSmemBytes / (FSTAGES * fm1_slot_
   const int plane = H * W;
 
   const float* g_b = g + static_cast<size_t>(b) * k * k * plane;
-  const __nv_bfloat16* fm_b = fm0 + static_cast<size_t>(b) * plane * C;
-  const int wx0 = x0 - d + 1;  // first staged source column
+  const __nv_bfloat16* fm_b = fm + static_cast<size_t>(b) * plane * C;
+  // first staged map column: dFM0 reads FM1 at x + dj - d, dFM1 reads FM0
+  // at the source column x - dj + d
+  const int wx0 = kFm1 ? x0 - d + 1 : x0 - d;
   const uint32_t ring = smem_u32(smem_mma);
 
-  // the source row of di is on the map and on the stride phase
+  // the map row di reads; dFM1's g row is that source row, dFM0's the
+  // output row y
+  auto map_row = [&](int di) { return kFm1 ? y - di + d : y + di - d; };
+  // dFM0: the output row's window mask (it puts the map row on the map);
+  // dFM1: the source row is on the map and its mask holds
   auto live = [&](int di) {
-    const int s = y - di + d;
+    if (!kFm1) return window_ok(y, di, d, stride, H);
+    const int s = map_row(di);
     return s >= 0 && s < H && window_ok(s, di, d, stride, H);
   };
 
   // Staging offsets, the same for every di. Window: thread tid copies the
   // 16-byte channel unit `seg` of window pixels jw0 + 8 n (their column
   // offsets in 16-byte units, -1 off the map). Band: entry e = tid + 128 n
-  // is (tile t, row m, dj), band column m - dj + 2d - 1, read from g's plane
-  // dj at source column x0 + 16 t + m + d - dj (-1: masked, zero-filled).
+  // is (tile t, row m, dj) of output column x = x0 + 16 t + m, read from
+  // g's plane dj at column x into band column m + dj (dFM0), or at the
+  // source column x + d - dj into band column m - dj + 2d - 1 (dFM1); -1:
+  // masked, zero-filled.
   const int seg = tid % FSEGS;
   const int jw0 = tid / FSEGS;
   const int c16 = C / 8;
@@ -394,9 +401,11 @@ __global__ void __launch_bounds__(FTHREADS, kMaxSmemBytes / (FSTAGES * fm1_slot_
     const int m = e & 15;
     const int dj = (e >> 4) % two_d;
     const int t = (e >> 4) / two_d;
-    const int col = x0 + 16 * t + m + d - dj;
+    const int x = x0 + 16 * t + m;
+    const int col = kFm1 ? x + d - dj : x;
+    const int bcol = kFm1 ? m - dj + two_d - 1 : m + dj;
     const bool ok = col >= 0 && col < W && window_ok(col, dj, d, stride, W);
-    bdst[n] = e < 2 * 16 * two_d ? BAND_OFF + ((16 * t + m) * GP + m - dj + two_d - 1) * 4 : -1;
+    bdst[n] = e < 2 * 16 * two_d ? BAND_OFF + ((16 * t + m) * GP + bcol) * 4 : -1;
     gsrc[n] = ok ? dj * plane + col : -1;
   }
 
@@ -407,12 +416,12 @@ __global__ void __launch_bounds__(FTHREADS, kMaxSmemBytes / (FSTAGES * fm1_slot_
     for (int e = tid; e < 2 * 16 * GP; e += FTHREADS) band[e] = 0.f;
   }
 
-  // FM0's source window and the banded gradient of di into ring slot `slot`
+  // the map window and the banded gradient of di into ring slot `slot`
   auto load = [&](int di, int slot) {
     if (!live(di)) return;
-    const int s = y - di + d;
+    const int r = map_row(di);
     const uint32_t slot_base = ring + slot * SLOT;
-    const uint4* row = reinterpret_cast<const uint4*>(fm_b + static_cast<size_t>(s) * W * C);
+    const uint4* row = reinterpret_cast<const uint4*>(fm_b + static_cast<size_t>(r) * W * C);
     const bool c_in = cu < c16;
 #pragma unroll
     for (int n = 0; n < NW; ++n) {
@@ -420,7 +429,8 @@ __global__ void __launch_bounds__(FTHREADS, kMaxSmemBytes / (FSTAGES * fm1_slot_
       cp_async16(slot_base + ((jw0 + 8 * n) * FPITCH + seg * 8) * 2,
                  valid ? row + coff[n] : row, valid);
     }
-    const float* g_row = g_b + static_cast<size_t>(di) * k * plane + static_cast<size_t>(s) * W;
+    const float* g_row =
+        g_b + static_cast<size_t>(di) * k * plane + static_cast<size_t>(kFm1 ? r : y) * W;
 #pragma unroll
     for (int n = 0; n < NB; ++n) {
       if (bdst[n] < 0) continue;
@@ -506,34 +516,35 @@ __global__ void __launch_bounds__(FTHREADS, kMaxSmemBytes / (FSTAGES * fm1_slot_
   }
 }
 
-template <int KS>
-int launch_fm1_mma_ks(const void* g, const void* fm0, void* out, int B, int H,
-                      int W, int C, int d, int stride, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(FSTAGES) * fm1_slot_bytes(KS);
+template <int KS, bool kFm1>
+int launch_mma_ks(const void* g, const void* fm, void* out, int B, int H,
+                  int W, int C, int d, int stride, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(FSTAGES) * mma_slot_bytes(KS);
   cudaError_t err = cudaFuncSetAttribute(
-      corr_bwd_fm1_mma_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      corr_bwd_mma_kernel<KS, kFm1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + FX - 1) / FX, H, B * ((C + FCB - 1) / FCB));
-  corr_bwd_fm1_mma_kernel<KS><<<grid, FTHREADS, smem, stream>>>(
-      static_cast<const float*>(g), static_cast<const __nv_bfloat16*>(fm0),
+  corr_bwd_mma_kernel<KS, kFm1><<<grid, FTHREADS, smem, stream>>>(
+      static_cast<const float*>(g), static_cast<const __nv_bfloat16*>(fm),
       static_cast<__nv_bfloat16*>(out), H, W, C, d, stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_fm1_mma(const void* g, const void* fm0, void* out, int B, int H,
-                   int W, int C, int d, int stride, cudaStream_t stream) {
+template <bool kFm1>
+int launch_mma(const void* g, const void* fm, void* out, int B, int H, int W,
+               int C, int d, int stride, cudaStream_t stream) {
   // whole, aligned 16-byte channel units; int offsets into one g batch item
   // (k^2 planes) and one map row
-  if (C % 8 != 0 || reinterpret_cast<uintptr_t>(fm0) % 16 != 0 ||
+  if (C % 8 != 0 || reinterpret_cast<uintptr_t>(fm) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
       static_cast<long long>(2 * d + 1) * (2 * d + 1) * H * W >= (1LL << 31) ||
       static_cast<long long>(W) * C >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (fm1_ks(d)) {  // d 1-8, 9-16, 17-24
-    case 2: return launch_fm1_mma_ks<2>(g, fm0, out, B, H, W, C, d, stride, stream);
-    case 3: return launch_fm1_mma_ks<3>(g, fm0, out, B, H, W, C, d, stride, stream);
-    case MAX_KS: return launch_fm1_mma_ks<MAX_KS>(g, fm0, out, B, H, W, C, d, stride, stream);
+  switch (mma_ks(d)) {  // d 1-8, 9-16, 17-24
+    case 2: return launch_mma_ks<2, kFm1>(g, fm, out, B, H, W, C, d, stride, stream);
+    case 3: return launch_mma_ks<3, kFm1>(g, fm, out, B, H, W, C, d, stride, stream);
+    case MAX_KS: return launch_mma_ks<MAX_KS, kFm1>(g, fm, out, B, H, W, C, d, stride, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -548,48 +559,44 @@ int check_args(int B, int H, int W, int C, int d_max, int stride, int cblk) {
   return 0;
 }
 
+// bf16 on the tensor cores, f32 on the CUDA cores
+template <bool kFm1>
+int corr_bwd(const void* g, const void* fm, void* out, int B, int H, int W,
+             int C, int d_max, int stride, int is_bf16, void* stream) {
+  if (const int err = check_args(B, H, W, C, d_max, stride, is_bf16 ? FCB : CCH))
+    return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) return launch_mma<kFm1>(g, fm, out, B, H, W, C, d_max, stride, s);
+  return launch<kFm1>(g, fm, out, B, H, W, C, d_max, stride, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory (bytes) one block of each kernel needs at this d_max and
-// dtype; the wrapper checks it against the card's limit before launching.
-size_t d2t_corr_bwd_fm0_smem_bytes(int d_max, int is_bf16) {
-  (void)is_bf16;
-  return make_geometry(d_max).smem_bytes;
-}
-
-size_t d2t_corr_bwd_fm1_smem_bytes(int d_max, int is_bf16) {
-  return is_bf16 ? static_cast<size_t>(FSTAGES) * fm1_slot_bytes(fm1_ks(d_max))
+// Shared memory (bytes) one block of either backward kernel needs at this
+// d_max and dtype; the wrapper checks it against the card's limit before
+// launching.
+size_t d2t_corr_bwd_smem_bytes(int d_max, int is_bf16) {
+  return is_bf16 ? static_cast<size_t>(FSTAGES) * mma_slot_bytes(mma_ks(d_max))
                  : make_geometry(d_max).smem_bytes;
 }
 
 // g: (B, (2d+1)^2, H, W) float32 contiguous. fm1, out: (B, H, W, C)
-// contiguous, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); out gets
-// dFM0, every element written. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// contiguous, float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1; C a multiple
+// of 8, 16-byte aligned); out gets dFM0, every element written. Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 int d2t_corr_bwd_fm0(const void* g, const void* fm1, void* out, int B, int H,
                      int W, int C, int d_max, int stride, int is_bf16,
                      void* stream) {
-  if (const int err = check_args(B, H, W, C, d_max, stride, CCH)) return err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16, false>(g, fm1, out, B, H, W, C, d_max, stride, s);
-  return launch<float, false>(g, fm1, out, B, H, W, C, d_max, stride, s);
+  return corr_bwd<false>(g, fm1, out, B, H, W, C, d_max, stride, is_bf16, stream);
 }
 
-// As d2t_corr_bwd_fm0, from fm0 to dFM1: bf16 on the tensor cores, f32 on
-// the CUDA cores.
+// As d2t_corr_bwd_fm0, from fm0 to dFM1.
 int d2t_corr_bwd_fm1(const void* g, const void* fm0, void* out, int B, int H,
                      int W, int C, int d_max, int stride, int is_bf16,
                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (const int err = check_args(B, H, W, C, d_max, stride, FCB)) return err;
-    return launch_fm1_mma(g, fm0, out, B, H, W, C, d_max, stride, s);
-  }
-  if (const int err = check_args(B, H, W, C, d_max, stride, CCH)) return err;
-  return launch<float, true>(g, fm0, out, B, H, W, C, d_max, stride, s);
+  return corr_bwd<true>(g, fm0, out, B, H, W, C, d_max, stride, is_bf16, stream);
 }
 
 }  // extern "C"

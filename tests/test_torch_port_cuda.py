@@ -76,15 +76,16 @@ def test_correlation_wrapper_on_card(cuda):
 
 
 # the forward's cases plus H = 48, the height the TPU package runs through
-# its halo'd multi-tile dFM1 kernel (K4)
-BWD_CASES = CORR_CASES + [(2, 48, 75, 384, 8, 1), (1, 48, 40, 64, 8, 2)]
+# its halo'd multi-tile dFM1 kernel (K4), and d_max 20, the widest band (KS
+# = 4) of the bf16 backward kernels (bf16 K1 refuses d_max >= 20)
+BWD_CASES = CORR_CASES + [(2, 48, 75, 384, 8, 1), (1, 48, 40, 64, 8, 2), (1, 20, 45, 40, 20, 1)]
 
 
 def _assert_grad_matches_plain(got, ref):
     """f32: both sum the same f32 products in another order, tolerance
     1e-5 of the largest magnitude. bf16: each rounds its f32 sum to bf16
-    once, so they may differ by one bf16 rounding (2^-8 relative), and the
-    tensor-core dFM1 kernel rounds g to bf16 as the TPU kernel does (2^-9
+    once, so they may differ by one bf16 rounding (2^-8 relative), and both
+    tensor-core backward kernels round g to bf16 as the TPU kernels do (2^-9
     per term, ~1e-3 of the largest magnitude over a sum): 8e-3 of the
     largest magnitude."""
     assert got.dtype == ref.dtype and got.shape == ref.shape
