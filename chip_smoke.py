@@ -18,7 +18,15 @@ Phases, each printing a line:
      Detector.__call__ and Detector.detect_pairs on a batch of BATCH_SIZE
      pairs; the kernel launch counters are reset before and read after;
      the tracks are held against the same run with the plain correlation.
-  5. train: full-width joint training steps (the same configuration, the
+  5. clip: ClipTracker (frame_chunk 8) on a 22-frame clip with the slice
+     phase's Detector: 3 chunks, each one detect_clip call (3 K1 launches)
+     and the clip's link scores, then one launch of the linker kernel
+     (ops/csrc/viterbi.cu); frames/s, device- against host-linked
+     tubelets, the kernel against its plain version on the clip's score
+     matrices and against the native linker on a 64-frame linking-only
+     case, detect_clip's tracks against the plain correlation, and the
+     call's device time by stage.
+  6. train: full-width joint training steps (the same configuration, the
      package's seeded init, synthetic frame pairs at INPUT_SHAPE): one
      warm-up step, then
      timed steps with the launch counters reset before and read after;
@@ -26,7 +34,8 @@ Phases, each printing a line:
      gradients with respect to c4 and c5 held against the plain
      correlation, and one step's device time by stage.
 The kernels phase also holds the backward kernels (corr_bwd_fm0,
-corr_bwd_fm1) against autograd through the plain version. The line before
+corr_bwd_fm1) against autograd through the plain version; the linker
+kernel is held in the clip phase. The line before
 the last is the kernels JSON; the last line is the device JSON. Any failed
 check raises, so the script exits non-zero.
 
@@ -36,6 +45,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -415,7 +425,233 @@ def phase_slice(smi: str):
     log(f"[slice] {pairs_per_s:.2f} pairs/s at batch {p} ({min(batch_s[1:]) * 1e3:.1f} ms per batch); "
         f"__call__ {min(call_s[1:]) * 1e3:.1f} ms per pair; card: {smi}")
     phase_profile(f"detect_pairs x{len(pairs)}", lambda: det.detect_pairs(pairs))
-    return launches
+    return launches, det
+
+
+CLIP_FRAMES = 22
+CLIP_CHUNK = 8
+
+
+def clip_frames(h, w, n):
+    """a seed-0 uint8 noise frame; frame t is it rolled by 4 t columns, so
+    adjacent frames overlap."""
+    import numpy as np
+
+    base = np.random.default_rng(0).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    return [np.roll(base, 4 * t, axis=1) for t in range(n)]
+
+
+def link_problem(seed, t, d):
+    """padded (T-1, D, D) link scores and (D,) init scores for a linking-only
+    case: per frame a random count of live slots in [D/2, D], -inf outside
+    them, scores multiples of 1/4 in [0, 2) (every DP sum exact in f32 and
+    f64, so the native linker's f64 sums must give the kernel's paths)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dims = rng.integers(d // 2, d + 1, size=t)
+    seq = np.full((t - 1, d, d), -np.inf, np.float32)
+    for i in range(t - 1):
+        seq[i, : dims[i], : dims[i + 1]] = rng.integers(0, 8, (dims[i], dims[i + 1])) / 4.0
+    init = np.full(d, -np.inf, np.float32)
+    init[: dims[0]] = rng.integers(0, 4, dims[0]) / 4.0
+    return seq, init
+
+
+def linker_dp_steps(spans):
+    """DP steps the linker kernel runs for extractions with these spans, in
+    extraction order (it re-runs the DP from max(0, start - 1) of the
+    previous path), and the steps of a DP from step 0 per extraction (the
+    plain version's)."""
+    dirty = steps = full = 0
+    for start, final in spans:
+        if final == 0:  # the length-1 paths at t = 0 run no DP
+            continue
+        steps += max(0, final - dirty)
+        full += final
+        dirty = max(0, start - 1)
+    return steps, full
+
+
+def linker_bound_ms(t1, d, dp_steps):
+    """least time for one extraction: the score matrices and init scores
+    read once and the outputs (spans, scores, nodes of T * D rows) written
+    once, against an add and a compare per matrix entry per DP step the
+    extraction runs, at the f32 peak."""
+    t = t1 + 1
+    nbytes = (t1 * d * d + d) * 4 + t * d * (3 + t) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * dp_steps * d * d / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _same_paths(got, ref):
+    import torch
+
+    return (int(got.n_paths) == int(ref.n_paths) and torch.equal(got.spans, ref.spans)
+            and torch.equal(got.nodes, ref.nodes) and torch.equal(got.scores.view(torch.int32), ref.scores.view(torch.int32)))
+
+
+def _trimmed(paths):
+    """DevicePaths -> [((start, end), score, nodes)] as the host linkers give them."""
+    n = int(paths.n_paths)
+    spans, scores, nodes = (x[:n].cpu().numpy() for x in (paths.spans, paths.scores, paths.nodes))
+    return [((int(s), int(e)), float(sc), nd[s : e + 1].tolist()) for (s, e), sc, nd in zip(spans, scores, nodes)]
+
+
+def phase_clip(smi: str, det):
+    """the clip path: ClipTracker(det, frame_chunk=CLIP_CHUNK, min_len=2) on
+    CLIP_FRAMES frames, one warm-up call, then two timed calls with the
+    kernel counters reset before and read after (3 K1 launches per chunk, 1
+    linker launch per clip). Then, outside the count: a valid detection in
+    every frame, device- against host-linked tubelets, the linker kernel
+    against its plain version on the clip's score matrices and against the
+    native linker on a 64-frame linking-only case, detect_clip's tracks
+    against the plain correlation, and a profiled call. Returns the
+    launches and the linker row of the kernels line."""
+    import numpy as np
+    import torch
+
+    from detect_to_track_tpu_torch import viterbi_device as vd
+    from detect_to_track_tpu_torch.clip import ClipTracker
+    from detect_to_track_tpu_torch.ops.correlation import corr_fwd_cuda
+    from detect_to_track_tpu_torch.viterbi import viterbi_multi_link
+
+    cfg = det.cfg
+    h, w = cfg.INPUT_SHAPE
+    n, chunk = CLIP_FRAMES, CLIP_CHUNK
+    frames = clip_frames(h, w, n)
+    starts = list(range(0, n - chunk, chunk - 1)) + [n - chunk]
+    # the random weights predict transforms near 1e10, which puts every
+    # track box off the frame and psi at 0; the tracker's Linear scaled by a
+    # power of two (exact) brings them near 0.1, so links have structure.
+    # The confidences stay as they are: saturated, exactly 1.0, so every link
+    # score is an integer and f32 and f64 linking agree exactly.
+    probe = det.detect_clip(np.stack(frames[:2]))
+    mag = probe.tracks[0][probe.valid[0]].abs().max().item()
+    scale = 2.0 ** round(math.log2(0.1 / mag))
+    with torch.no_grad():
+        det.model.c_tracker.reg_fc.weight.mul_(scale)
+        det.model.c_tracker.reg_fc.bias.mul_(scale)
+    log(f"[clip] {n} frames (seed-0 noise frame rolled 4 columns per frame), chunk {chunk}: starts {starts}; "
+        f"tracker Linear x2^{round(math.log2(scale))} (transforms up to {mag:.3e} -> {mag * scale:.3e})")
+
+    tracker = ClipTracker(det, frame_chunk=chunk, min_len=2)
+    t = time.perf_counter()
+    tracker(frames)
+    log(f"[clip] warm-up call {(time.perf_counter() - t) * 1e3:.1f} ms")
+
+    # ---- the main path: counters from 0, read right after ----
+    corr_fwd_cuda.launches = 0
+    vd.viterbi_multi_link_cuda.launches = 0
+    clip_s = []
+    for r in range(2):
+        before = (corr_fwd_cuda.launches, vd.viterbi_multi_link_cuda.launches)
+        t = time.perf_counter()
+        tubes = tracker(frames)
+        torch.cuda.synchronize()
+        clip_s.append(time.perf_counter() - t)
+        delta = (corr_fwd_cuda.launches - before[0], vd.viterbi_multi_link_cuda.launches - before[1])
+        if delta != (3 * len(starts), 1):
+            raise AssertionError(f"clip call {r}: launches (corr_fwd, linker) = {delta}, expected ({3 * len(starts)}, 1)")
+        log(f"[clip] call {r}: {clip_s[-1] * 1e3:.1f} ms, {len(tubes)} tubelets, host upload time {tracker.last_upload_s * 1e3:.1f} ms")
+    launches = {"corr_fwd": corr_fwd_cuda.launches, "viterbi_multi_link": vd.viterbi_multi_link_cuda.launches}
+    log(f"[clip] kernel launches on the main path: {launches} in 2 clip calls")
+    if not tubes:
+        raise AssertionError("the clip gave no tubelet")
+    lengths = [e - s + 1 for (s, e), _ in tubes]
+    log(f"[clip] tubelets: {len(tubes)}, length min {min(lengths)} / median {sorted(lengths)[len(lengths) // 2]} / "
+        f"max {max(lengths)}; {n / min(clip_s):.2f} clip frames/s ({min(clip_s) * 1e3:.1f} ms per {n}-frame clip, "
+        f"best of 2); card: {smi}")
+
+    # ---- checks, outside the main-path count ----
+    # the chunks' detections and the clip's score matrices, first chunk
+    # first for a frame two chunks share, as ClipTracker assembles them
+    outs = [det.detect_clip(np.stack(frames[s : s + chunk])) for s in starts]
+    n_valid, seq_slots, init = [None] * n, [None] * (n - 1), None
+    for s, out in zip(starts, outs):
+        seq, ini = tracker._chunk_scores(out)
+        init = ini if s == 0 else init
+        for fi in range(chunk):
+            if n_valid[s + fi] is None:
+                n_valid[s + fi] = int(out.valid[fi].sum())
+            if fi < chunk - 1 and seq_slots[s + fi] is None:
+                seq_slots[s + fi] = seq[fi]
+    if min(n_valid) == 0:
+        raise AssertionError(f"a frame has no valid detection: {n_valid}")
+    seq = torch.stack(seq_slots)
+    live = torch.isfinite(seq)
+    log(f"[clip] valid detections per frame {n_valid}; score matrices {tuple(seq.shape)}: {int(live.sum())} live links, "
+        f"{int((seq[live] >= 2.5).sum())} with psi = 1")
+
+    host = ClipTracker(det, frame_chunk=chunk, min_len=2, device_linking=False)
+    t = time.perf_counter()
+    host_tubes = host(frames)
+    host_s = time.perf_counter() - t
+    same = len(host_tubes) == len(tubes) and all(
+        sa == sb and ba.shape == bb.shape and np.abs(ba - bb).max() <= 1e-6 for (sa, ba), (sb, bb) in zip(tubes, host_tubes)
+    )
+    log(f"[clip] device-linked vs host-linked (native) tubelets: {len(tubes)} vs {len(host_tubes)}, "
+        f"{'identical order, spans and boxes (1e-6)' if same else 'DIFFERENT'}; host-linked call {host_s * 1e3:.1f} ms")
+    if not same:
+        raise AssertionError("device- and host-linked tubelets differ")
+
+    got = vd.viterbi_multi_link_cuda(seq, init)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ref = vd.viterbi_multi_link_ref(seq, init)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    if not _same_paths(got, ref):
+        raise AssertionError("the linker kernel disagrees with its plain version on the clip's score matrices")
+    ms = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(seq, init), iters=10, warmup=2)
+    seq_host, init_host = list(seq.double().cpu().numpy()), init.double().cpu().tolist()
+    t = time.perf_counter()
+    viterbi_multi_link(seq_host, init_host, use_native=True)
+    native_ms = (time.perf_counter() - t) * 1e3
+    paths = _trimmed(got)
+    steps, full = linker_dp_steps([p[0] for p in paths])
+    bound, by = linker_bound_ms(n - 1, cfg.max_dets, steps)
+    log(f"[clip] linker {n - 1}x{cfg.max_dets}x{cfg.max_dets}: kernel = plain version (n_paths, spans, nodes, "
+        f"bitwise scores); {len(paths)} paths ({sum(e > 0 for (_, e), _, _ in paths)} extractions), {steps} DP steps "
+        f"run ({full} from step 0); ms={ms:.4f} plain_ms={plain_ms:.1f} native_ms={native_ms:.2f} bound_ms={bound:.6f} "
+        f"({by}: the score matrices read once, outputs written once, an add and a compare per entry per DP step)")
+
+    # the linking-only case: 64 frames, D 128, against the native linker
+    seq64, init64 = link_problem(0, 64, cfg.max_dets)
+    s64, i64 = torch.from_numpy(seq64).cuda(), torch.from_numpy(init64).cuda()
+    got64 = _trimmed(vd.viterbi_multi_link_cuda(s64, i64))
+    t = time.perf_counter()
+    nat64 = viterbi_multi_link(list(seq64), list(init64), use_native=True)
+    native64_ms = (time.perf_counter() - t) * 1e3
+    if got64 != nat64:
+        raise AssertionError("the linker kernel disagrees with the native linker at T = 64")
+    ms64 = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(s64, i64), iters=5, warmup=1)
+    steps64, full64 = linker_dp_steps([p[0] for p in got64])
+    bound64, by64 = linker_bound_ms(seq64.shape[0], cfg.max_dets, steps64)
+    log(f"[clip] linker {seq64.shape[0]}x{cfg.max_dets}x{cfg.max_dets} (dyadic scores, {100 * float(np.isinf(seq64).mean()):.1f}% -inf): "
+        f"kernel = native linker (spans, nodes, scores); {len(got64)} paths ({sum(e > 0 for (_, e), _, _ in got64)} "
+        f"extractions), {steps64} DP steps run ({full64} from step 0); ms={ms64:.4f} native_ms={native64_ms:.2f} "
+        f"bound_ms={bound64:.6f} ({by64})")
+
+    # detect_clip's tracks against the plain correlation (not the main path)
+    det.model.c_tracker.corr_impl = "torch"
+    plain = det.detect_clip(np.stack(frames[:chunk]))
+    torch.cuda.synchronize()
+    det.model.c_tracker.corr_impl = "auto"
+    if not torch.equal(plain.valid, outs[0].valid) or not torch.equal(plain.boxes, outs[0].boxes):
+        raise AssertionError("detect_clip's detections differ between kernel and plain correlation runs")
+    v = outs[0].valid[:-1]
+    scale = plain.tracks[v].abs().max().item()
+    err = (outs[0].tracks[v] - plain.tracks[v]).abs().max().item()
+    tol = 1e-3 * scale  # as the slice phase: bf16 rounding of the volumes in the fused head
+    log(f"[clip] detect_clip tracks kernel vs plain correlation: max_abs_err={err:.3e} (tol {tol:.3e}, max|ref| {scale:.3e})")
+    if not err <= tol:
+        raise AssertionError("detect_clip's tracks disagree between the kernel and the plain correlation")
+
+    phase_profile(f"ClipTracker {n} frames, chunk {chunk}", lambda: tracker(frames))
+    row = dict(launches=launches["viterbi_multi_link"], err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    return launches, row
 
 
 def phase_train(smi: str, steps: int = 3):
@@ -602,7 +838,7 @@ def phase_profile(label, fn, top: int = 15):
     ranked = sorted(kernels, key=dev_us, reverse=True)
     # the top kernels, then the port's own kernels wherever they rank
     for rank, e in enumerate(ranked):
-        if rank < top or "corr_" in e.key:
+        if rank < top or "corr_" in e.key or "viterbi" in e.key:
             log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / max(busy, 1e-9):5.1f}%  x{e.count:<4d} "
                 f"#{rank + 1:<3d} {e.key[:90]}")
 
@@ -617,7 +853,9 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(pairs=4)
     bwd_rows = phase_bwd_kernels(pairs=4)
-    slice_launches = phase_slice(smi)
+    slice_launches, det = phase_slice(smi)
+    clip_launches, linker_row = phase_clip(smi, det)
+    del det
     train_launches = phase_train(smi)
     # per call or step at the working point (bf16, 38x75, d 8, stride 1):
     # K1 over the three scales' channels, the backward kernels over c4 and c5
@@ -632,7 +870,7 @@ def main() -> int:
         errs[name] = [r["err"] for r in bwd_rows if r["kernel"] == name]
     meta = {
         "corr_fwd": ("detect_to_track_tpu_torch/ops/csrc/corr_fwd.cu", "detect_to_track_tpu/ops/correlation.py:92",
-                     slice_launches + train_launches["corr_fwd"]),
+                     slice_launches + clip_launches["corr_fwd"] + train_launches["corr_fwd"]),
         "corr_bwd_fm0": ("detect_to_track_tpu_torch/ops/csrc/corr_bwd.cu", "detect_to_track_tpu/ops/correlation.py:187",
                          train_launches["corr_bwd_fm0"]),
         # one kernel for both TPU dFM1 kernels: K3 (:378, H <= 40) and K4 (:267)
@@ -652,6 +890,19 @@ def main() -> int:
         "bound_by": main_rows[name][0]["bound_by"],
         "library_ms": None,
     } for name, (source, replaces, launches) in meta.items()]
+    kernels.append({
+        "name": "viterbi_multi_link",
+        "route": "cuda",
+        "source": "detect_to_track_tpu_torch/ops/csrc/viterbi.cu",
+        "replaces": "detect_to_track_tpu/viterbi_device.py:155 (viterbi_multi_link_scan, an XLA program, not a Pallas kernel)",
+        "launches": linker_row["launches"],
+        "max_abs_err": linker_row["err"],
+        "ms": linker_row["ms"],
+        "plain_ms": linker_row["plain_ms"],
+        "bound_ms": linker_row["bound_ms"],
+        "bound_by": linker_row["bound_by"],
+        "library_ms": None,
+    })
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,13 @@
-"""inference: the detect-and-track forward over frame pairs (port of the JAX
-package's `inference.py`, pair paths):
+"""inference: the detect-and-track forward over frame pairs and clips (port
+of the JAX package's `inference.py`):
 
     backbone -> RPN -> decode -> gate / top-k / NMS -> R-FCN -> decode ->
     non-background gate -> compaction to MAX_DETS -> tracker
 
 All of it runs on the model's device; one copy to the host returns padded
 detections and masks, and `Detector.__call__` trims them to the reference
-API. Each stage runs inside a `torch.profiler.record_function` range named
+API. `detect_clip` runs the per-frame stages once per frame of a clip and
+the tracker on every adjacent pair (ClipTracker in clip.py links them). Each stage runs inside a `torch.profiler.record_function` range named
 `d2t::<stage>`, so a profiler trace gives the device time per stage:
 
     confs0, confs1, bboxes0, bboxes1, tracks = detector(im0, im1)
@@ -136,6 +137,40 @@ def detect_pair(
     return PairDetections(*(f[0] for f in out))
 
 
+class ClipDetections(NamedTuple):
+    """fixed-shape per-clip outputs (leading axis F = frames)."""
+
+    confs: torch.Tensor  # (F, D, C+1)
+    boxes: torch.Tensor  # (F, D, 4)
+    valid: torch.Tensor  # (F, D)
+    tracks: torch.Tensor  # (F-1, D, 4) frame t -> t+1 transforms
+
+
+@torch.inference_mode()
+def detect_clip(model: DetectTrackModule, frames, anchors, cfg: Config, device: Device = None) -> ClipDetections:
+    """forward for F consecutive frames: the backbone, RPN and R-FCN run once
+    per frame and the tracker runs on every adjacent pair by slicing the
+    shared feature batch (the pair API computes every interior frame twice).
+
+    Args:
+        frames: (F, H, W, 3) float32 in [0, 1] or uint8 in [0, 255] (uint8 is
+            divided by 255 on the device).
+        device: where it runs (cuda unless given); the model must be there.
+    """
+    dev = resolve_device(device)
+    check_model_device(model, dev)
+    frames = torch.as_tensor(frames).to(dev)
+    anchors = torch.as_tensor(anchors).to(dev)
+    fmaps_t, fm_reg, confs, boxes, valid = _detect_frames(model, frames, anchors, cfg)
+
+    # the tracker over all adjacent pairs, sharing the per-frame features
+    with record_function("d2t::tracker"):
+        pyr0 = {k: v[:-1] for k, v in fmaps_t.items()}
+        pyr1 = {k: v[1:] for k, v in fmaps_t.items()}
+        tracks = model.c_tracker(pyr0, pyr1, fm_reg[:-1], fm_reg[1:], boxes[:-1])  # (F-1, D, 4)
+    return ClipDetections(confs=confs, boxes=boxes, valid=valid, tracks=tracks)
+
+
 class Detector:
     """host-facing detector with the reference's API: __call__(im0, im1) ->
     (confs0, confs1, bboxes0, bboxes1, tracks) as trimmed numpy arrays.
@@ -171,6 +206,12 @@ class Detector:
         """batched raw API: pairs is (P, 2, H, W, 3); returns the padded
         PairDetections on the device, with a leading P axis."""
         return detect_pairs_batched(self.model, self._pack_input(pairs), self.anchors, self.cfg, self.device)
+
+    def detect_clip(self, frames) -> ClipDetections:
+        """consecutive-frame raw API: frames is (F, H, W, 3); the backbone
+        runs once per frame (see detect_clip). Returns the padded
+        ClipDetections on the device."""
+        return detect_clip(self.model, self._pack_input(frames), self.anchors, self.cfg, self.device)
 
     def _to_array(self, im) -> np.ndarray:
         if isinstance(im, np.ndarray):

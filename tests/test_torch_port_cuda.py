@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from detect_to_track_tpu_torch import viterbi_device
 from detect_to_track_tpu_torch.ops import correlation
+from detect_to_track_tpu_torch.viterbi import viterbi_multi_link
 
 pytestmark = pytest.mark.gpu
 
@@ -27,6 +29,9 @@ CORR_CASES = [
     (1, 9, 64, 16, 1, 1),  # d_max 1: one warp
 ]
 DTYPES = [torch.bfloat16, torch.float32]
+# the forward also at batch 7: the tracker over the 7 adjacent pairs of an
+# 8-frame detect_clip chunk
+FWD_CASES = CORR_CASES + [(7, 38, 75, 512, 8, 1)]
 
 
 @pytest.fixture
@@ -51,7 +56,7 @@ def _assert_matches_plain(got, fm0, fm1, d_max, stride, layout):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("case", CORR_CASES, ids=str)
+@pytest.mark.parametrize("case", FWD_CASES, ids=str)
 def test_correlation_kernel_matches_plain(cuda, case, dtype):
     b, h, w, c, d_max, stride = case
     fm0, fm1 = _maps((b, h, w, c), dtype, cuda)
@@ -141,3 +146,109 @@ def test_correlation_backward_rejects_bad_input(cuda):
         correlation.corr_bwd_fm0_cuda(torch.zeros(1, 9, 4, 4, device=cuda), fm, 1, 1)
     with pytest.raises(ValueError, match="CUDA"):
         correlation.corr_bwd_fm1_cuda(torch.zeros(1, 9, 4, 5), fm.cpu(), 1, 1)
+
+
+def _link_problem(seed, t, d, dyadic):
+    """padded (T-1, D, D) link scores and (D,) init scores: per frame a
+    random count of live slots in [D/2, D], -inf outside them. Scores are
+    uniform f32 in [0, 2), or (dyadic) multiples of 1/4 in [0, 2): every DP
+    sum is then exact in f32 and in f64, with many exact ties."""
+    rng = np.random.default_rng(seed)
+    dims = rng.integers(max(d // 2, 1), d + 1, size=t)
+    seq = np.full((t - 1, d, d), -np.inf, np.float32)
+    for i in range(t - 1):
+        shape = (dims[i], dims[i + 1])
+        seq[i, : shape[0], : shape[1]] = rng.integers(0, 8, shape) / 4.0 if dyadic else rng.random(shape) * 2
+    init = np.full(d, -np.inf, np.float32)
+    init[: dims[0]] = rng.integers(0, 4, dims[0]) / 4.0 if dyadic else rng.random(dims[0])
+    return seq, init
+
+
+def _assert_same_paths(got, ref):
+    """DevicePaths: identical n_paths, spans and nodes, bitwise-equal scores."""
+    assert int(got.n_paths) == int(ref.n_paths)
+    assert torch.equal(got.spans, ref.spans) and torch.equal(got.nodes, ref.nodes)
+    assert torch.equal(got.scores.view(torch.int32), ref.scores.view(torch.int32))
+
+
+# (seed, T, D): D a warp multiple and not, one slot, 1024 slots (the most
+# threads a block takes), the chip clip's 22 x 128
+LINK_CASES = [(0, 4, 6), (1, 8, 32), (2, 22, 128), (3, 12, 100), (4, 6, 1), (5, 3, 1024)]
+
+
+@pytest.mark.parametrize("dyadic", [False, True], ids=["uniform", "dyadic"])
+@pytest.mark.parametrize("case", LINK_CASES, ids=str)
+def test_linker_kernel_matches_plain(cuda, case, dyadic):
+    seq, init = (torch.from_numpy(x).to(cuda) for x in _link_problem(*case, dyadic))
+    before = viterbi_device.viterbi_multi_link_cuda.launches
+    got = viterbi_device.viterbi_multi_link_scan(seq, init)
+    torch.cuda.synchronize()
+    assert viterbi_device.viterbi_multi_link_cuda.launches == before + 1
+    _assert_same_paths(got, viterbi_device.viterbi_multi_link_ref(seq, init))
+    assert int(got.n_paths) > 0
+
+
+def test_linker_kernel_global_tables(cuda, monkeypatch):
+    """step scores and parents in a global scratch (the long-clip layout)
+    give the shared-memory layout's result."""
+    seq, init = (torch.from_numpy(x).to(cuda) for x in _link_problem(6, 9, 40, False))
+    ref = viterbi_device.viterbi_multi_link_cuda(seq, init)
+    monkeypatch.setattr(viterbi_device, "_tables_in_smem", lambda lib, t1, d: False)
+    _assert_same_paths(viterbi_device.viterbi_multi_link_cuda(seq, init), ref)
+
+
+def test_linker_kernel_matches_native(cuda):
+    """T = 64, D = 128 with dyadic scores, against the native host linker
+    (f64 sums, exact here): the same paths in the same order."""
+    seq, init = _link_problem(7, 64, 128, True)
+    got = viterbi_device.viterbi_multi_link_cuda(torch.from_numpy(seq).to(cuda), torch.from_numpy(init).to(cuda))
+    ref = viterbi_multi_link(list(seq), list(init), use_native=True)
+    n = int(got.n_paths)
+    spans, scores, nodes = (x[:n].cpu().numpy() for x in (got.spans, got.scores, got.nodes))
+    assert n == len(ref)
+    for i, ((s, e), score, path) in enumerate(ref):
+        assert (int(spans[i, 0]), int(spans[i, 1])) == (s, e)
+        assert nodes[i, s : e + 1].tolist() == path
+        assert float(scores[i]) == score
+
+
+def test_linker_kernel_exact_zero_transition(cuda):
+    seq = torch.tensor([[[-np.inf, 0.0], [-np.inf, -np.inf]]], dtype=torch.float32, device=cuda)
+    init = torch.zeros(2, device=cuda)
+    got = viterbi_device.viterbi_multi_link_cuda(seq, init)
+    assert int(got.n_paths) == 3
+    assert got.spans[:3].tolist() == [[1, 1], [0, 0], [0, 0]]
+    assert got.nodes[:3].tolist() == [[-1, 1], [0, -1], [1, -1]]
+    _assert_same_paths(got, viterbi_device.viterbi_multi_link_ref(seq, init))
+
+
+def test_linker_kernel_rejects_bad_input(cuda):
+    seq = torch.zeros(2, 4, 4, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        viterbi_device.viterbi_multi_link_cuda(seq.double(), torch.zeros(4, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="D, D"):
+        viterbi_device.viterbi_multi_link_cuda(seq, torch.zeros(3, device=cuda))
+    with pytest.raises(ValueError, match="1024"):
+        viterbi_device.viterbi_multi_link_cuda(torch.zeros(1, 1025, 1025, device=cuda), torch.zeros(1025, device=cuda))
+
+
+def test_linker_raises_without_its_kernel(cuda, monkeypatch):
+    """a CUDA tensor launches the linker kernel or raises: a library that
+    cannot be built or a failed launch never falls back to the plain
+    version."""
+    seq, init = (torch.from_numpy(x).to(cuda) for x in _link_problem(0, 4, 6, False))
+
+    def no_library():
+        raise RuntimeError("kernel build failed: viterbi.cu")
+
+    monkeypatch.setattr(viterbi_device, "_viterbi_lib", no_library)
+    with pytest.raises(RuntimeError, match="viterbi.cu"):
+        viterbi_device.viterbi_multi_link_scan(seq, init)
+
+    class FailingLaunch:
+        def __getattr__(self, name):
+            return lambda *args: 1  # cudaErrorInvalidValue from every entry point
+
+    monkeypatch.setattr(viterbi_device, "_viterbi_lib", FailingLaunch)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        viterbi_device.viterbi_multi_link_scan(seq, init)
