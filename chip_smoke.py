@@ -12,7 +12,9 @@ Phases, each printing a line:
      time and the least time the card could take (the bound); the bf16
      tensor-core kernels (K1 and both backward kernels) also at d_max 1
      and 12, stride 3, C = 33 and a 5x7 map, with the bytes they stage
-     from L2.
+     from L2; K1 and both backward kernels in both dtypes at d_max 20, 24
+     and 32 on a 20x45 map (the forwards tiled in 16 x 16 displacements
+     from d_max 17 / 20, the bf16 backward at KS = 4 and 5).
   4. slice: the full-width detect-and-track path (cfg/default.yaml: ResNet-50,
      608x1200, bf16) with random weights from a seed, through
      Detector.__call__ and Detector.detect_pairs on a batch of BATCH_SIZE
@@ -24,8 +26,9 @@ Phases, each printing a line:
      (ops/csrc/viterbi.cu); frames/s, device- against host-linked
      tubelets, the kernel against its plain version on the clip's score
      matrices and against the native linker on a 64-frame linking-only
-     case, detect_clip's tracks against the plain correlation, and the
-     call's device time by stage.
+     case, the kernel against its plain version at D 1500 and 2048 (several
+     slots per thread), detect_clip's tracks against the plain correlation,
+     and the call's device time by stage.
   6. train: full-width joint training steps (the same configuration, the
      package's seeded init, synthetic frame pairs at INPUT_SHAPE): one
      warm-up step, then
@@ -33,11 +36,19 @@ Phases, each printing a line:
      finite losses, frozen stages bitwise unchanged, the track loss's
      gradients with respect to c4 and c5 held against the plain
      correlation, and one step's device time by stage.
+  7. trainer: the training entry point at full width (cfg/default.yaml with
+     DATA_ROOT a fixture ILSVRC tree from tools/make_fixture_tree.py,
+     TRN_SIZE 16, VAL_SIZE 8, REP_SIZE 2): `train.main` for 16 pairs (one
+     epoch of 4 steps, validation, report overlays, checkpoints) with the
+     kernel counters reset before and read after, a `--resume` to 24 pairs
+     that must restore the saved weights and momentum bitwise, then
+     `evaluate.main --all-ckpts` over the rotated checkpoints.
 The kernels phase also holds the backward kernels (corr_bwd_fm0,
 corr_bwd_fm1) against autograd through the plain version; the linker
-kernel is held in the clip phase. The line before
-the last is the kernels JSON; the last line is the device JSON. Any failed
-check raises, so the script exits non-zero.
+kernel is held in the clip phase. The script prints
+its total time, then the card's name and power limit, then the kernels
+JSON, and last the device JSON. Any failed check raises, so the script
+exits non-zero.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -200,9 +211,13 @@ def staged_bytes(kernel, b, h, w, c, d, stride):
 
     tiles = -(-w // 32)
     if kernel == "corr_fwd":
-        nt = -(-(15 + 2 * d) // 8)
         rows = sum(live(i, r) for i in range(h) for r in range(2 * d))
-        return b * tiles * (rows * (16 + 8 * nt) + h * 32) * c * 2
+        if d <= 19:  # one block for all displacements
+            nt = -(-(15 + 2 * d) // 8)
+            return b * tiles * (rows * (16 + 8 * nt) + h * 32) * c * 2
+        # 16 x 16 displacement tiles (NT = 4): each row in each column band
+        n = -(-2 * d // 16)
+        return b * tiles * (n * rows * 48 + n * n * h * 32) * c * 2
     ks = -(-(15 + 2 * d) // 16)
     if kernel == "corr_bwd_fm1":
         rows = sum(0 <= y - r + d < h and live(y - r + d, r) for y in range(h) for r in range(2 * d))
@@ -219,6 +234,13 @@ def _odd_cases(dt):
             (38, 75, 33, 8, 1, dt), (5, 7, 64, 8, 1, dt)]
 
 
+def _wide_cases():
+    """wide windows in both dtypes on a small map: d_max 20, 24, 32."""
+    import torch
+
+    return [(20, 45, 256, d, 1, dt) for d in (20, 24, 32) for dt in (torch.bfloat16, torch.float32)]
+
+
 def phase_kernels(pairs: int):
     """K1 against the plain version at the tracker's shapes (pairs x 38x75,
     C = 512 / 1024 / 2048, d 8), bf16 and f32, plus stride 2 and C = 384,
@@ -231,7 +253,7 @@ def phase_kernels(pairs: int):
     cases = [(38, 75, c, 8, 1, dt) for c in (512, 1024, 2048) for dt in (torch.bfloat16, torch.float32)]
     cases += [(38, 75, 384, 8, 2, torch.bfloat16), (38, 75, 384, 8, 2, torch.float32),
               (38, 75, 384, 8, 1, torch.float32)]
-    cases += _odd_cases(torch.bfloat16)
+    cases += _odd_cases(torch.bfloat16) + _wide_cases()
     rows = []
     for h, w, c, d, stride, dt in cases:
         fm0 = torch.randn(pairs, h, w, c, device="cuda", generator=gen).to(dt)
@@ -282,7 +304,7 @@ def phase_bwd_kernels(pairs: int):
     cases = [(38, 75, c, 8, 1, dt) for c in (1024, 2048) for dt in (torch.bfloat16, torch.float32)]
     cases += [(38, 75, 384, 8, 2, torch.bfloat16), (48, 75, 384, 8, 1, torch.bfloat16),
               (48, 75, 384, 8, 1, torch.float32)]
-    cases += _odd_cases(torch.bfloat16)
+    cases += _odd_cases(torch.bfloat16) + _wide_cases()
     kernels = {
         "corr_bwd_fm0": (corr.corr_bwd_fm0_cuda, corr.corr_bwd_fm0_ref),
         "corr_bwd_fm1": (corr.corr_bwd_fm1_cuda, corr.corr_bwd_fm1_ref),
@@ -634,6 +656,22 @@ def phase_clip(smi: str, det):
         f"extractions), {steps64} DP steps run ({full64} from step 0); ms={ms64:.4f} native_ms={native64_ms:.2f} "
         f"bound_ms={bound64:.6f} ({by64})")
 
+    # several slots per thread: D 1500 and 2048 on a short dyadic clip
+    for d_big in (1500, 2048):
+        seq_b, init_b = (torch.from_numpy(x).cuda() for x in link_problem(d_big, 3, d_big))
+        got_b = vd.viterbi_multi_link_cuda(seq_b, init_b)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ref_b = vd.viterbi_multi_link_ref(seq_b, init_b)
+        torch.cuda.synchronize()
+        plain_b = (time.perf_counter() - t) * 1e3
+        if not _same_paths(got_b, ref_b):
+            raise AssertionError(f"the linker kernel disagrees with its plain version at D = {d_big}")
+        ms_b = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(seq_b, init_b), iters=3, warmup=1)
+        log(f"[clip] linker 2x{d_big}x{d_big} (dyadic scores, {-(-d_big // 1024)} slots per thread at most): "
+            f"kernel = plain version (n_paths {int(got_b.n_paths)}, spans, nodes, bitwise scores); "
+            f"ms={ms_b:.4f} plain_ms={plain_b:.1f}")
+
     # detect_clip's tracks against the plain correlation (not the main path)
     det.model.c_tracker.corr_impl = "torch"
     plain = det.detect_clip(np.stack(frames[:chunk]))
@@ -748,6 +786,148 @@ def phase_train(smi: str, steps: int = 3):
     return launches
 
 
+def phase_trainer(smi: str):
+    """the training entry point at full width on a fixture ILSVRC tree:
+    train.main for 16 pairs (4 steps, 2 validation batches, 2 report pairs)
+    with the kernel counters reset before and read after (3 corr_fwd, 2
+    corr_bwd_fm0 and 2 corr_bwd_fm1 launches per step, 3 corr_fwd per
+    validation batch and per report pair), then a --resume to 24 pairs that
+    must restore the saved weights and momentum bitwise, then evaluate.main
+    --all-ckpts over the rotated checkpoints. Returns the counts."""
+    import shutil
+
+    import torch
+
+    from detect_to_track_tpu_torch import evaluate, train
+    from detect_to_track_tpu_torch.config import load_config, save_config
+    from detect_to_track_tpu_torch.ops import correlation as corr
+    from detect_to_track_tpu_torch.trainer import DetectTrackTrainer, TrainStep
+
+    work = ROOT / "build" / "chip_smoke_trainer"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, str(ROOT / "tools" / "make_fixture_tree.py"), str(work / "ILSVRC"),
+                    "--snippets", "4", "--frames", "8", "--det", "4"], check=True, capture_output=True, text=True)
+    cfg = load_config(str(ROOT / "cfg" / "default.yaml")).replace(
+        DATA_ROOT=str(work / "ILSVRC"), TRN_SIZE=16, VAL_SIZE=8, REP_SIZE=2, OUTPUT_DIR=str(work / "output"),
+        LOG_EVERY=4, CHECKPOINT_KEEP=2)
+    yaml_path = work / "trainer.yaml"
+    save_config(cfg, str(yaml_path))
+    p = cfg.BATCH_SIZE
+    steps, val_batches, rep_pairs = cfg.TRN_SIZE // p, cfg.VAL_SIZE // p, cfg.REP_SIZE
+    log(f"[trainer] fixture ILSVRC tree (4 snippets x 8 frames, 4 DET stills, 1280x720 JPEGs) and config "
+        f"written in {time.perf_counter() - t0:.1f} s; {cfg.BACKBONE_ARCH} {cfg.INPUT_SHAPE} x{p} pairs "
+        f"{cfg.COMPUTE_DTYPE}, TRN_SIZE {cfg.TRN_SIZE}, VAL_SIZE {cfg.VAL_SIZE}, REP_SIZE {cfg.REP_SIZE}")
+
+    # ---- the main path: counters from 0, read right after ----
+    counters = {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
+                "corr_bwd_fm1": corr.corr_bwd_fm1_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    # where the loop's wall time goes: each call of these methods, timed to
+    # a device sync. The four trainer methods do not nest; the steps run
+    # inside `train`, whose rest is waiting for batches (sampling, JPEG
+    # decoding), the loss reads and the log (which `report` calls too). The
+    # rest of the wall is set-up.
+    calls = {name: [] for name in ("train", "validate", "report", "checkpoint", "step", "log")}
+    targets = {name: (DetectTrackTrainer, name) for name in ("train", "validate", "report", "checkpoint")}
+    targets["step"] = (TrainStep, "__call__")
+    targets["log"] = (DetectTrackTrainer, "_default_logger")  # inside train and report
+    originals = {name: getattr(cls, attr) for name, (cls, attr) in targets.items()}
+
+    def timed(name, fn):
+        def call(self, *args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(self, *args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                calls[name].append(time.perf_counter() - t)
+        return call
+
+    for name, (cls, attr) in targets.items():
+        setattr(cls, attr, timed(name, originals[name]))
+    try:
+        t = time.perf_counter()
+        trainer = train.main(["-c", str(yaml_path), "--max-iters", str(cfg.TRN_SIZE)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        for name, (cls, attr) in targets.items():
+            setattr(cls, attr, originals[name])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expected = {"corr_fwd": 3 * (steps + val_batches + rep_pairs), "corr_bwd_fm0": 2 * steps,
+                "corr_bwd_fm1": 2 * steps}
+    log(f"[trainer] train.main: {steps} steps, {val_batches} validation batches, {rep_pairs} report pairs in "
+        f"{wall:.2f} s wall = {cfg.TRN_SIZE / wall:.2f} training pairs/s over the whole loop (JPEG decoding, "
+        f"validation, report and checkpoints included); card: {smi}")
+    sec = {name: sum(v) for name, v in calls.items()}
+    log(f"[trainer] wall by part: train {sec['train']:.2f} s (the steps {sec['step']:.2f} s: "
+        f"{[round(1e3 * x, 1) for x in calls['step']]} ms; waiting for batches and the rest "
+        f"{sec['train'] - sec['step']:.2f} s; logging {sec['log']:.2f} s in all), validate {sec['validate']:.2f} s, report {sec['report']:.2f} s, "
+        f"checkpoint {sec['checkpoint']:.2f} s ({len(calls['checkpoint'])} saves), set-up and the rest "
+        f"{wall - sec['train'] - sec['validate'] - sec['report'] - sec['checkpoint']:.2f} s "
+        "(model, data managers, trainer)")
+    log(f"[trainer] kernel launches on the main path: {launches}, expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"trainer launches {launches} != {expected}")
+    if trainer.step_count != steps:
+        raise AssertionError(f"{trainer.step_count} updates after {steps} steps")
+    out = Path(cfg.OUTPUT_DIR)
+    entries = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    if not entries or not all(math.isfinite(v) for e in entries for v in e.values()):
+        raise AssertionError(f"metrics.jsonl has no entry or a non-finite value: {entries}")
+    files = sorted(x.name for x in out.iterdir())
+    log(f"[trainer] metrics.jsonl: {len(entries)} entries, all finite; output: {files}")
+    for name in ("ckpt", "ckpt_final", f"ckpt_step_{steps:08d}", "report"):
+        if name not in files:
+            raise AssertionError(f"{name} missing from {files}")
+
+    # ---- resume: the restored state equals the saved one before a new step ----
+    saved = torch.load(out / "ckpt", map_location="cuda", weights_only=True)
+    run = DetectTrackTrainer.run
+    seen = {}
+
+    def checked_run(self, max_iters):
+        model_sd, opt_sd = self.model.state_dict(), self.optimizer.state_dict()
+        same_w = all(torch.equal(model_sd[k], v) for k, v in saved["model"].items())
+        same_m = all(torch.equal(opt_sd["state"][i]["momentum_buffer"], st["momentum_buffer"])
+                     for i, st in saved["optimizer"]["state"].items())
+        seen.update(weights=same_w, momentum=same_m, step=self.step_count, n_iters=self.n_iters,
+                    n_momentum=len(saved["optimizer"]["state"]))
+        return run(self, max_iters)
+
+    DetectTrackTrainer.run = checked_run
+    try:
+        t = time.perf_counter()
+        resumed = train.main(["-c", str(yaml_path), "--resume", "--max-iters", str(cfg.TRN_SIZE + 2 * p)])
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t
+    finally:
+        DetectTrackTrainer.run = run
+    final = torch.load(out / "ckpt_final", map_location="cpu", weights_only=True)
+    log(f"[trainer] resume: restored step {seen['step']}, n_iters {seen['n_iters']}; weights bitwise equal "
+        f"{seen['weights']}, momentum ({seen['n_momentum']} buffers) bitwise equal {seen['momentum']}; "
+        f"step counter {resumed.step_count} after the resume ({resume_s:.2f} s), ckpt_final at step {final['step']}")
+    if not (seen["weights"] and seen["momentum"] and seen["step"] == steps and seen["n_iters"] == cfg.TRN_SIZE):
+        raise AssertionError(f"the resume did not restore the saved state: {seen}")
+    if resumed.step_count != steps + 2 or final["step"] != steps + 2:
+        raise AssertionError(f"the step counter did not continue: {resumed.step_count}, {final['step']}")
+
+    # ---- evaluate every rotated checkpoint ----
+    t = time.perf_counter()
+    results = evaluate.main(["-c", str(yaml_path), "--ckpt", str(out / "ckpt"), "--all-ckpts", "--n-samples", "8"])
+    eval_s = time.perf_counter() - t
+    rotated = sorted(x.name for x in out.glob("ckpt_step_*"))
+    scored = [r["ckpt"] for r in results]
+    log(f"[trainer] evaluate --all-ckpts ({eval_s:.2f} s): " + "; ".join(
+        f"{r['ckpt']} step {r['step']} mAP {r['mAP']:.4f}" for r in results))
+    if scored[: len(rotated)] != rotated or not all(0.0 <= r["mAP"] <= 1.0 for r in results):
+        raise AssertionError(f"evaluate scored {scored}, rotated {rotated}; mAPs {[r['mAP'] for r in results]}")
+    shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def train_track_grads(model, cfg, batch):
     """the track loss alone (COEFS weighs it 1e-4 in the step, so a wrong
     correlation gradient hardly shows in the parameters): its gradients with
@@ -846,6 +1026,7 @@ def phase_profile(label, fn, top: int = 15):
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not (ROOT / "detect_to_track_tpu_torch").is_dir():
         raise SystemExit("chip_smoke: run from a checkout of the repository (detect_to_track_tpu_torch/ is missing)")
     sys.path.insert(0, str(ROOT))
@@ -857,6 +1038,7 @@ def main() -> int:
     clip_launches, linker_row = phase_clip(smi, det)
     del det
     train_launches = phase_train(smi)
+    trainer_launches = phase_trainer(smi)
     # per call or step at the working point (bf16, 38x75, d 8, stride 1):
     # K1 over the three scales' channels, the backward kernels over c4 and c5
     def at_working_point(r, channels):
@@ -870,12 +1052,13 @@ def main() -> int:
         errs[name] = [r["err"] for r in bwd_rows if r["kernel"] == name]
     meta = {
         "corr_fwd": ("detect_to_track_tpu_torch/ops/csrc/corr_fwd.cu", "detect_to_track_tpu/ops/correlation.py:92",
-                     slice_launches + clip_launches["corr_fwd"] + train_launches["corr_fwd"]),
+                     slice_launches + clip_launches["corr_fwd"] + train_launches["corr_fwd"]
+                     + trainer_launches["corr_fwd"]),
         "corr_bwd_fm0": ("detect_to_track_tpu_torch/ops/csrc/corr_bwd.cu", "detect_to_track_tpu/ops/correlation.py:187",
-                         train_launches["corr_bwd_fm0"]),
+                         train_launches["corr_bwd_fm0"] + trainer_launches["corr_bwd_fm0"]),
         # one kernel for both TPU dFM1 kernels: K3 (:378, H <= 40) and K4 (:267)
-        "corr_bwd_fm1": ("detect_to_track_tpu_torch/ops/csrc/corr_bwd.cu",
-                         "detect_to_track_tpu/ops/correlation.py:378,267", train_launches["corr_bwd_fm1"]),
+        "corr_bwd_fm1": ("detect_to_track_tpu_torch/ops/csrc/corr_bwd.cu", "detect_to_track_tpu/ops/correlation.py:378,267",
+                         train_launches["corr_bwd_fm1"] + trainer_launches["corr_bwd_fm1"]),
     }
     kernels = [{
         "name": name,
@@ -903,6 +1086,7 @@ def main() -> int:
         "bound_by": linker_row["bound_by"],
         "library_ms": None,
     })
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """data types (numpy; a copy of the JAX package's `data/types.py`).
 
-The human-readable types mirror the reference's ObjectLabel, ImageInstance
-and DataManager. The padded types hold fixed-shape arrays: every frame's
+The human-readable types mirror the reference's ObjectLabel,
+RawImageInstance, ImageInstance, DataSampler, DataManager and
+DataManagerWrapper. The padded types hold fixed-shape arrays: every frame's
 variable-length label list is packed into (MAX_LABELS,) arrays and a
 validity mask, real labels first (the encoders' argmax tie-break relies on
 that order).
@@ -10,6 +11,7 @@ that order).
 from __future__ import annotations
 
 import abc
+from pathlib import Path
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -24,11 +26,27 @@ class ObjectLabel(NamedTuple):
     track_id: Optional[int] = None
 
 
+class RawImageInstance(NamedTuple):
+    """unprocessed instance: paths only, loaded lazily."""
+
+    impath: Path
+    labelpath: Path
+
+
 class ImageInstance(NamedTuple):
     """decoded image (a PIL.Image or an (H, W, 3) array) and its labels."""
 
     im: object
     labels: Tuple[ObjectLabel, ...]
+
+
+class DataSampler(abc.ABC):
+    """non-deterministic sampler; handles IO and conversion to the common
+    format."""
+
+    @abc.abstractmethod
+    def sample(self):
+        raise NotImplementedError
 
 
 class DataManager(abc.ABC):
@@ -41,6 +59,28 @@ class DataManager(abc.ABC):
     @abc.abstractmethod
     def __len__(self):
         raise NotImplementedError
+
+
+class DataManagerWrapper(DataManager):
+    """adapts a DataSampler to the DataManager interface with a nominal
+    length (reference types.py:57-68): every index draws a fresh sample."""
+
+    def __init__(self, sampler: DataSampler, nominal_len: int) -> None:
+        self.sampler = sampler
+        self.nominal_len = nominal_len
+
+    def __getitem__(self, i: int):
+        return self.sampler.sample()
+
+    def __len__(self) -> int:
+        return self.nominal_len
+
+    def reseed(self, salt: int) -> None:
+        """resume support: salt the wrapped sampler's stream (if it is
+        seeded) so a rebuilt process does not replay instances already
+        trained on."""
+        if hasattr(self.sampler, "reseed"):
+            self.sampler.reseed(salt)
 
 
 class PaddedFrame(NamedTuple):

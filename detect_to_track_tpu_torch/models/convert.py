@@ -10,6 +10,10 @@
   (torchvision backbone under `backbone.1.`, live BatchNorm statistics) ->
   this port's state_dict, folding each BatchNorm into its frozen affine.
   The counterpart of the JAX package's `convert_reference_state_dict`.
+- `convert_torch_state_dict`: a torchvision ResNet state_dict -> this
+  port's backbone state_dict (`model.backbone.load_state_dict`), BatchNorm
+  folded likewise; the `fc` head is not used. The counterpart of the JAX
+  package's `models/resnet.py::convert_torch_state_dict` (`--torch-weights`).
 - `random_reference_state_dict`: random weights with the reference's keys,
   drawn with numpy from a seed, for smoke runs at any configuration.
 """
@@ -78,7 +82,7 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
 def load_reference_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
     """reference DetectTrackModule.state_dict() (numpy arrays or tensors) ->
     this port's state_dict, ready for `model.load_state_dict`."""
-    sd = {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v) for k, v in state_dict.items()}
+    sd = _numpy_state_dict(state_dict)
     out: Dict[str, torch.Tensor] = {}
     bn_prefixes = {k[: -len(".running_mean")] for k in sd if k.endswith(".running_mean")}
     for key, value in sd.items():
@@ -91,10 +95,7 @@ def load_reference_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
             if prefix in bn_prefixes:
                 if leaf != "weight":
                     continue  # folded with the weight below
-                gamma = sd[f"{prefix}.weight"]
-                beta = sd[f"{prefix}.bias"]
-                scale = gamma / np.sqrt(sd[f"{prefix}.running_var"] + BN_EPS)
-                bias = beta - sd[f"{prefix}.running_mean"] * scale
+                scale, bias = _fold_bn(sd, prefix)
                 port_prefix = new.rpartition(".")[0]
                 out[f"{port_prefix}.scale"] = _t(scale)
                 out[f"{port_prefix}.bias"] = _t(bias)
@@ -104,6 +105,48 @@ def load_reference_state_dict(state_dict: Mapping) -> Dict[str, torch.Tensor]:
                 "rcnn.reg_head.sm_conv", "rcnn.reg_sm_conv"
             )
         out[new] = _t(value)
+    return out
+
+
+def _numpy_state_dict(state_dict: Mapping) -> Dict[str, np.ndarray]:
+    return {k: np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v) for k, v in state_dict.items()}
+
+
+def _fold_bn(sd: Mapping[str, np.ndarray], prefix: str, eps: float = BN_EPS):
+    """BatchNorm (weight, bias, running_mean, running_var) at `prefix` ->
+    the frozen affine: scale = gamma / sqrt(var + eps), bias = beta - mean *
+    scale."""
+    scale = sd[f"{prefix}.weight"] / np.sqrt(sd[f"{prefix}.running_var"] + eps)
+    return scale, sd[f"{prefix}.bias"] - sd[f"{prefix}.running_mean"] * scale
+
+
+def convert_torch_state_dict(state_dict: Mapping, arch: str, eps: float = BN_EPS) -> Dict[str, torch.Tensor]:
+    """torchvision ResNet state_dict (numpy arrays or tensors) -> this
+    port's ResNetBackbone state_dict: conv weights as they are (OIHW),
+    each BatchNorm folded into its FrozenBatchNorm scale and bias. Raises
+    KeyError on a missing entry."""
+    sd = _numpy_state_dict(state_dict)
+    blocks, _, _ = ARCHS[arch]
+    out: Dict[str, torch.Tensor] = {}
+
+    def conv(prefix):
+        out[f"{prefix}.weight"] = _t(sd[f"{prefix}.weight"])
+
+    def bn(prefix):
+        scale, bias = _fold_bn(sd, prefix, eps)
+        out[f"{prefix}.scale"], out[f"{prefix}.bias"] = _t(scale), _t(bias)
+
+    conv("conv1")
+    bn("bn1")
+    for li, n_blocks in enumerate(blocks, start=1):
+        for bi in range(n_blocks):
+            p = f"layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                conv(f"{p}.conv{ci}")
+                bn(f"{p}.bn{ci}")
+            if f"{p}.downsample.0.weight" in sd:
+                conv(f"{p}.downsample.0")
+                bn(f"{p}.downsample.1")
     return out
 
 

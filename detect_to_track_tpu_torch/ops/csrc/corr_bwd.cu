@@ -66,7 +66,8 @@
 //   computed once per block: only the map row changes with di. A staged
 //   pixel is 136 bf16 (272 bytes, 17 16-byte units): the 8 rows of an
 //   ldmatrix phase fall on 8 bank groups. KS = K / 16 is a template
-//   parameter (2-4), so bf16 takes d_max <= 24.
+//   parameter (2-5), so bf16 takes d_max <= 32 (KS = 5: a 37 KB ring slot,
+//   16 band entries and 12 window pixels per thread).
 // - the sums leave through shared memory as 16-byte stores per 8 channels.
 // What bounds it on the card: the window is staged once per (output row,
 // live di), so each map byte is read from L2 about 2d times (0.75 / 1.50 GB
@@ -255,7 +256,7 @@ constexpr int FTHREADS = 128;
 constexpr int FPITCH = FCB + 8;     // bf16 per staged pixel (272 bytes)
 constexpr int FSEGS = FCB / 8;      // 16-byte segments per staged pixel
 constexpr int FSTAGES = 3;          // ring slots
-constexpr int MAX_KS = 4;           // k16 steps per m16 tile: d_max <= 24
+constexpr int MAX_KS = 5;           // k16 steps per m16 tile: d_max <= 32
 constexpr int kMaxSmemBytes = 232448;  // shared memory one SM gives blocks
 
 // k16 steps per m16 tile: the band of a 16-row tile spans 15 + 2d columns
@@ -541,9 +542,10 @@ int launch_mma(const void* g, const void* fm, void* out, int B, int H, int W,
       static_cast<long long>(2 * d + 1) * (2 * d + 1) * H * W >= (1LL << 31) ||
       static_cast<long long>(W) * C >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (mma_ks(d)) {  // d 1-8, 9-16, 17-24
+  switch (mma_ks(d)) {  // d 1-8, 9-16, 17-24, 25-32
     case 2: return launch_mma_ks<2, kFm1>(g, fm, out, B, H, W, C, d, stride, stream);
     case 3: return launch_mma_ks<3, kFm1>(g, fm, out, B, H, W, C, d, stride, stream);
+    case 4: return launch_mma_ks<4, kFm1>(g, fm, out, B, H, W, C, d, stride, stream);
     case MAX_KS: return launch_mma_ks<MAX_KS, kFm1>(g, fm, out, B, H, W, C, d, stride, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

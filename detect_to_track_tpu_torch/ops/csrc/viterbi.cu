@@ -1,6 +1,7 @@
 // Multi-path Viterbi tubelet extraction for Hopper (sm_90a), the whole
-// extraction in one launch: one block per clip, one thread per detection
-// slot.
+// extraction in one launch: one block per clip, each thread owning the
+// detection slots tid, tid + blockDim.x, ... (one slot per thread up to
+// kMaxThreads slots, ceil(D / kMaxThreads) past it).
 //
 // Replaces detect_to_track_tpu/viterbi_device.py::viterbi_multi_link_scan,
 // an XLA program (a fori_loop over final timesteps, a while_loop per
@@ -41,6 +42,8 @@
 //   end-node tie-break read no matrix;
 // - thread dst reads seq[t][src][dst] over src: the warp's loads are
 //   coalesced rows, and the source scores are a shared-memory broadcast.
+//   A thread with several slots runs each one's loop in turn, with the same
+//   adds and compares as one thread per slot.
 // Parents and step scores move to a global scratch when they do not fit in
 // shared memory (long clips).
 
@@ -49,9 +52,29 @@
 
 #include <cstddef>
 
+// threads per block, and so the slots a block gives one thread each; the
+// CPU build of the tests sets it small to run several slots per thread
+#ifndef D2T_VITERBI_MAX_THREADS
+#define D2T_VITERBI_MAX_THREADS 1024
+#endif
+
 namespace {
 
-constexpr int kMaxSlots = 1024;           // D <= one block's threads
+constexpr int kMaxThreads = D2T_VITERBI_MAX_THREADS;
+
+// one thread per slot up to kMaxThreads slots
+int block_threads(int D) { return D < kMaxThreads ? D : kMaxThreads; }
+
+// f(v) for each slot v this thread owns: v = tid alone when the block has a
+// thread per slot (kOneSlot), else tid, tid + nth, ... below D
+template <bool kOneSlot, typename F>
+__device__ __forceinline__ void for_each_slot(int tid, int nth, int D, F f) {
+  if (kOneSlot) {
+    f(tid);
+    return;
+  }
+  for (int v = tid; v < D; v += nth) f(v);
+}
 // dynamic shared memory per block: Hopper's 232,448 bytes less room for the
 // kernel's few static shared variables
 constexpr size_t kMaxSmemBytes = 232448 - 1024;
@@ -69,7 +92,9 @@ size_t table_bytes(int T1, int D) {
 // false for +-inf and NaN, as isfinite
 __device__ __forceinline__ bool finite(float x) { return fabsf(x) < CUDART_INF_F; }
 
-__global__ void __launch_bounds__(kMaxSlots)
+// kOneSlot: D <= kMaxThreads, one thread per slot
+template <bool kOneSlot>
+__global__ void __launch_bounds__(kMaxThreads)
     viterbi_multi_link_kernel(float* seq, const float* __restrict__ init_scores,
                               float* step_scores_g, int* parents_g, int* spans,
                               float* scores_out, int* nodes, int* n_paths,
@@ -77,7 +102,8 @@ __global__ void __launch_bounds__(kMaxSlots)
   // seq is read after this block's own -inf writes: plain loads (no
   // __restrict__ / read-only cache), ordered by __syncthreads.
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tid = threadIdx.x;  // the destination slot this thread owns
+  const int tid = threadIdx.x;  // owns the slots tid + n * nth
+  const int nth = blockDim.x;
   const int T = T1 + 1;
   float* init_s = reinterpret_cast<float*>(smem_raw);
   int* cnt = reinterpret_cast<int*>(init_s + D);
@@ -92,7 +118,7 @@ __global__ void __launch_bounds__(kMaxSlots)
   const float kNegInf = -CUDART_INF_F;
   const size_t DD = static_cast<size_t>(D) * D;
 
-  init_s[tid] = init_scores[tid];
+  for_each_slot<kOneSlot>(tid, nth, D, [&](int v) { init_s[v] = init_scores[v]; });
   if (tid == 0) {
     s_n = 0;
     s_dirty = 0;  // DP steps [0, s_dirty) are valid
@@ -100,34 +126,39 @@ __global__ void __launch_bounds__(kMaxSlots)
   __syncthreads();
 
   for (int final_ts = T1; final_ts >= 1; --final_ts) {
-    {  // finite entries in this thread's column of the incoming matrix
-      const float* col = seq + (final_ts - 1) * DD + tid;
+    // finite entries in this thread's columns of the incoming matrix
+    bool any = false;
+    for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
+      const float* col = seq + (final_ts - 1) * DD + v;
       int c = 0;
 #pragma unroll 16
       for (int s = 0; s < D; ++s) c += finite(col[s * static_cast<size_t>(D)]) ? 1 : 0;
-      cnt[tid] = c;
-    }
-    while (__syncthreads_or(cnt[tid] > 0)) {
+      cnt[v] = c;
+      any = any || c > 0;
+    });
+    while (__syncthreads_or(any)) {
       const int t0 = s_dirty;
       __syncthreads();  // every thread has read s_dirty before thread 0 moves it
 
       // the DP over the steps whose inputs changed
       for (int t = t0; t < final_ts; ++t) {
         const float* prev = t == 0 ? init_s : S + static_cast<size_t>(t - 1) * D;
-        const float* m = seq + t * DD + tid;
-        float best = prev[0] + m[0];
-        int src = 0;
+        for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
+          const float* m = seq + t * DD + v;
+          float best = prev[0] + m[0];
+          int src = 0;
 #pragma unroll 16
-        for (int s = 1; s < D; ++s) {
-          const float v = prev[s] + m[s * static_cast<size_t>(D)];
-          if (v > best) {
-            best = v;
-            src = s;
+          for (int s = 1; s < D; ++s) {
+            const float x = prev[s] + m[s * static_cast<size_t>(D)];
+            if (x > best) {
+              best = x;
+              src = s;
+            }
           }
-        }
-        const bool fresh = !(best > 0.f);
-        P[static_cast<size_t>(t) * D + tid] = fresh ? -1 : src;
-        S[static_cast<size_t>(t) * D + tid] = fresh ? 0.f : best;
+          const bool fresh = !(best > 0.f);
+          P[static_cast<size_t>(t) * D + v] = fresh ? -1 : src;
+          S[static_cast<size_t>(t) * D + v] = fresh ? 0.f : best;
+        });
         __syncthreads();
       }
 
@@ -177,15 +208,23 @@ __global__ void __launch_bounds__(kMaxSlots)
       // outgoing: row path[ts] of matrix ts, ts in [start, final_ts)
       for (int ts = start; ts < final_ts; ++ts) {
         float* row = seq + ts * DD + static_cast<size_t>(path[ts]) * D;
-        if (ts == final_ts - 1 && finite(row[tid])) --cnt[tid];
-        row[tid] = kNegInf;
+        for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
+          if (ts == final_ts - 1 && finite(row[v])) --cnt[v];
+          row[v] = kNegInf;
+        });
       }
       __syncthreads();
       // incoming: column path[ts] of matrix ts - 1, ts in [max(start, 1), final_ts]
       for (int ts = start > 0 ? start : 1; ts <= final_ts; ++ts)
-        seq[(ts - 1) * DD + static_cast<size_t>(tid) * D + path[ts]] = kNegInf;
-      if (tid == path[final_ts]) cnt[tid] = 0;
-      if (start == 0 && tid == path[0]) init_s[tid] = kNegInf;
+        for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
+          seq[(ts - 1) * DD + static_cast<size_t>(v) * D + path[ts]] = kNegInf;
+        });
+      any = false;
+      for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
+        if (v == path[final_ts]) cnt[v] = 0;
+        if (start == 0 && v == path[0]) init_s[v] = kNegInf;
+        any = any || cnt[v] > 0;
+      });
       // the loop condition's __syncthreads_or orders these writes
     }
   }
@@ -211,8 +250,8 @@ __global__ void __launch_bounds__(kMaxSlots)
   // the unused rows: zero spans and scores, -1 nodes
   const int n = s_n;
   const size_t cap = static_cast<size_t>(T) * D;
-  for (size_t i = static_cast<size_t>(n) * T + tid; i < cap * T; i += blockDim.x) nodes[i] = -1;
-  for (size_t i = n + tid; i < cap; i += blockDim.x) {
+  for (size_t i = static_cast<size_t>(n) * T + tid; i < cap * T; i += nth) nodes[i] = -1;
+  for (size_t i = n + tid; i < cap; i += nth) {
     spans[2 * i] = 0;
     spans[2 * i + 1] = 0;
     scores_out[i] = 0.f;
@@ -222,6 +261,10 @@ __global__ void __launch_bounds__(kMaxSlots)
 }  // namespace
 
 extern "C" {
+
+// 1 when a clip's init scores, counts and path fit in shared memory (the
+// kernel's only limit on D), else 0.
+int d2t_viterbi_fits(int T1, int D) { return base_smem_bytes(T1, D) <= kMaxSmemBytes ? 1 : 0; }
 
 // 1 when a clip's step scores and parents fit in shared memory beside the
 // rest, 0 when the wrapper must pass a global scratch for them.
@@ -235,24 +278,25 @@ int d2t_viterbi_tables_in_smem(int T1, int D) {
 // fit in shared memory. Outputs, every element written: spans (T*D, 2)
 // int32, scores (T*D,) float32, nodes (T*D, T) int32 (-1 outside a path's
 // span and in unused rows), n_paths (1,) int32, with T = T1 + 1. One block
-// of D threads on `stream`; returns cudaGetLastError() (0 on success).
+// of min(D, kMaxThreads) threads on `stream`; any D whose init scores,
+// counts and path fit in shared memory (D up to about 28,000). Returns
+// cudaGetLastError() (0 on success).
 int d2t_viterbi_multi_link(void* seq, const void* init, void* step_scores,
                            void* parents, void* spans, void* scores,
                            void* nodes, void* n_paths, int T1, int D,
                            void* stream) {
-  if (T1 < 0 || D < 1 || D > kMaxSlots ||
-      (step_scores == nullptr) != (parents == nullptr))
+  if (T1 < 0 || D < 1 || (step_scores == nullptr) != (parents == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool in_smem = step_scores == nullptr;
   if (in_smem && !d2t_viterbi_tables_in_smem(T1, D))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = base_smem_bytes(T1, D) + (in_smem ? table_bytes(T1, D) : 0);
   if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      viterbi_multi_link_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  auto kernel = D <= kMaxThreads ? viterbi_multi_link_kernel<true> : viterbi_multi_link_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  viterbi_multi_link_kernel<<<1, D, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<1, block_threads(D), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(seq), static_cast<const float*>(init),
       static_cast<float*>(step_scores), static_cast<int*>(parents),
       static_cast<int*>(spans), static_cast<float*>(scores),

@@ -1,6 +1,7 @@
 """joint training of the whole detect-and-track model (port of the JAX
 package's `trainer.py`: `forward_losses`, `make_optimizer`,
-`make_train_step`, `make_eval_step` and `BatchLoader`).
+`make_train_step`, `make_eval_step`, `BatchLoader`, `prefetch` and the
+checkpointing `DetectTrackTrainer`).
 
 One forward computes all five losses for a batch of frame pairs: backbone,
 RPN with its anchor targets, the proposal filter, R-FCN with its region
@@ -21,14 +22,24 @@ Semantics kept from the reference (each as the JAX package keeps them):
 
 Each stage runs inside a `torch.profiler.record_function` range named
 `d2t::<stage>`, the backward inside `d2t::backward` and the update inside
-`d2t::optimizer`. The checkpointing trainer, `prefetch` and the CLIs are
-not ported yet (ROADMAP.md item 9).
+`d2t::optimizer`.
+
+`DetectTrackTrainer` runs the reference's loop (train an epoch, validate,
+report, early-stop) with the JAX trainer's checkpoints, resume, NaN policy,
+host-memory watchdog and JSONL log; `python -m
+detect_to_track_tpu_torch.train` drives it. It is one process on one
+device: the multi-process and multi-device parts of the JAX trainer are
+ROADMAP.md item 10.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Iterator, Optional, Tuple
+import shutil
+import sys
+from pathlib import Path
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -313,3 +324,504 @@ class BatchLoader:
 
     def __len__(self) -> int:
         return len(self.manager) // self.batch_size
+
+
+def prefetch(iterator: Iterator, depth: int = 2) -> Iterator:
+    """host-side prefetch: a background thread keeps `depth` packed batches
+    ready while the device trains. An exception in the producer is raised
+    in the consumer with its traceback; a consumer that stops early (closes
+    the generator) releases the producer, which stops at its next put."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    sentinel = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        # a bounded put that notices the consumer's shutdown, so the thread
+        # never blocks forever holding `depth` decoded batches
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.25)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for item in iterator:
+                if not put(item):
+                    return
+            put(sentinel)
+        except BaseException as e:  # noqa: BLE001 - relayed to the consumer
+            put(e)
+
+    t = threading.Thread(target=producer, daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        try:
+            q.get_nowait()
+        except queue.Empty:
+            pass
+
+
+def _overlay(im, confs: np.ndarray, boxes: np.ndarray, top_n: int = 3):
+    """a copy of the frame (PIL, uint8 or [0, 1] float array) with each
+    detection's box and its top_n class confidences drawn."""
+    from PIL import Image
+
+    from .vis import draw_detections
+
+    if isinstance(im, np.ndarray):
+        im = Image.fromarray(im if im.dtype == np.uint8 else (im * 255).astype(np.uint8))
+    else:
+        im = im.copy()
+    labels = [" ".join(f"{c}:{conf[c]:.2f}" for c in np.argsort(-conf)[:top_n]) for conf in confs]
+    return draw_detections(im, boxes, labels)
+
+
+def _active_wandb():
+    """the wandb module when a run is active, else None. Only a run that
+    the caller started counts (the train entry point does, under
+    WANDB_MODE), so wandb is never imported here: its import alone takes
+    seconds."""
+    wandb = sys.modules.get("wandb")
+    return wandb if wandb is not None and getattr(wandb, "run", None) is not None else None
+
+
+def _host_loss(dtl: DTLoss) -> DTLoss:
+    """the components as CPU tensors (one device read per step)."""
+    return dtl._map(lambda v: v.detach().cpu())
+
+
+class DetectTrackTrainer:
+    """train / validate / report / early-stop loop (reference
+    trainer.py:45-367) with checkpoints and resume, on one device (cuda
+    unless `device` is given; the model must lie there).
+
+    A checkpoint is one `torch.save` file: the model's state_dict, the SGD
+    momentum (the optimizer's state_dict) and the step counter, beside a
+    `<path>.meta.json` sidecar with the loop's host state. The default
+    path `OUTPUT_DIR/ckpt` holds the best model by validation loss and
+    keeps a rotating history `ckpt_step_%08d` of CHECKPOINT_KEEP copies;
+    the watchdog saves `ckpt_autosave`, the end of `run` `ckpt_final`."""
+
+    def __init__(
+        self,
+        model: DetectTrackModule,
+        trn_manager: DataManager,
+        val_manager: DataManager,
+        rep_manager: Optional[DataManager],
+        cfg: Config,
+        logger: Optional[Callable[[Dict], None]] = None,
+        device: Optional[torch.device] = None,
+    ) -> None:
+        if cfg.NUM_DEVICES > 1 or cfg.NUM_HOSTS > 1:
+            raise NotImplementedError(
+                f"NUM_DEVICES={cfg.NUM_DEVICES}, NUM_HOSTS={cfg.NUM_HOSTS}: data-parallel and multi-process "
+                "training (the mesh, collectives, barrier_sync) are not ported yet: ROADMAP.md item 10"
+            )
+        self.device = resolve_device(device)
+        self.model = model
+        self.cfg = cfg
+        self.optimizer = make_optimizer(cfg, model)
+        self._train_step = make_train_step(model, cfg, self.optimizer, self.device)
+        self._eval_step = make_eval_step(model, cfg, self.device)
+        self.trn_loader = BatchLoader(trn_manager, cfg.BATCH_SIZE, cfg, seed=0)
+        self.val_loader = BatchLoader(val_manager, cfg.BATCH_SIZE, cfg, seed=1, shuffle=False)
+        if len(self.trn_loader) == 0:
+            # a zero-batch train loader would "train" nothing while still
+            # burning PATIENCE full validation epochs
+            raise ValueError(
+                f"training manager yields 0 batches ({len(trn_manager)} instances at "
+                f"BATCH_SIZE={cfg.BATCH_SIZE}); raise TRN_SIZE or lower BATCH_SIZE"
+            )
+        if len(self.val_loader) == 0:
+            # every val loss would be 0/0: no checkpoint would ever be written
+            raise ValueError(
+                f"validation manager yields 0 batches ({len(val_manager)} instances at "
+                f"BATCH_SIZE={cfg.BATCH_SIZE}); raise VAL_SIZE or lower BATCH_SIZE"
+            )
+        self.rep_manager = rep_manager
+        self._report_detector = None  # built once, on the live model
+
+        self.output_dir = Path(cfg.OUTPUT_DIR)
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self.logger = logger or self._default_logger
+
+        self.n_iters = 0
+        self.best_val_loss = float("inf")
+        self.iters_no_improvement = 0
+        self._max_iters = float("inf")
+        self._coefs = torch.tensor(cfg.COEFS, dtype=torch.float32)
+        self._in_validate = False
+        self._val_pending = False
+        self._profiled = False
+        self._rss_limit_cache: Optional[Tuple[float, float]] = None  # (cfg value, GB)
+        self._rss_watchdog_disarmed = False
+        # host-RSS watchdog hook: called (after an autosave) when the process
+        # exceeds cfg.HOST_RSS_LIMIT_GB; the train entry point installs an
+        # exec-restart, None warns once and disarms
+        self.on_host_memory_limit: Optional[Callable[[], None]] = None
+
+    @property
+    def step_count(self) -> int:
+        """optimizer updates taken (a skipped non-finite step is not one)."""
+        return self._train_step.steps
+
+    @staticmethod
+    def _proc_salt(step: int) -> int:
+        """the sampler salt of a resume at `step`: the step itself in one
+        process (the JAX trainer's identity there; per-process salts are
+        ROADMAP.md item 10)."""
+        return step
+
+    def _default_logger(self, metrics: Dict) -> None:
+        """wandb when a run is active, else one JSON line per call in
+        OUTPUT_DIR/metrics.jsonl."""
+        wandb = _active_wandb()
+        if wandb is not None:
+            wandb.log(metrics)
+            return
+        scalars = {k: float(v) for k, v in metrics.items() if isinstance(v, (int, float)) or hasattr(v, "__float__")}
+        with open(self.output_dir / "metrics.jsonl", "a") as f:
+            f.write(json.dumps(scalars) + "\n")
+
+    def close(self) -> None:
+        """stop the loaders' decode threads."""
+        self.trn_loader.close()
+        self.val_loader.close()
+
+    def _profile(self):
+        """a torch.profiler context for the first epoch when PROFILE_DIR is
+        set (its trace is written there on exit), else None."""
+        if not self.cfg.PROFILE_DIR or self._profiled:
+            return None
+        from torch.profiler import ProfilerActivity, profile
+
+        self._profiled = True
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
+        return profile(activities=acts)
+
+    def train(self) -> DTLoss:
+        trn_loss = DTLoss()
+        prof = self._profile()
+        if prof is not None:
+            prof.__enter__()
+        try:
+            window = DTLoss()
+            for batch in prefetch(iter(self.trn_loader)):
+                # NAN_POLICY "skip": the step itself leaves the parameters,
+                # the momentum and the counter as they were; the host only
+                # skips the accumulation
+                dtl = _host_loss(self._train_step(batch))
+                skipped = not self._check_finite(dtl) and self.cfg.NAN_POLICY == "skip"
+                self.n_iters += self.cfg.BATCH_SIZE
+                # the watchdog on every batch (skipped or not, whatever
+                # LOG_EVERY is): epochs longer than the memory headroom must
+                # still autosave in time. Below the limit it is one /proc read.
+                self._check_host_memory()
+                if skipped:
+                    # a skipped batch still spends the instance budget, so
+                    # run(max_iters) ends even on a bad shard
+                    if self.n_iters >= self._max_iters:
+                        break
+                    continue
+                trn_loss = trn_loss + dtl
+                window = window + dtl
+                if self.cfg.LOG_EVERY and float(window.count) >= self.cfg.LOG_EVERY:
+                    c = float(window.count)
+                    self.logger(
+                        {f"itr_{k}": float(v) / c for k, v in window.asdict().items()}
+                        | {"iter": self.n_iters, "dropped_labels": self.trn_loader.dropped_labels}
+                    )
+                    window = DTLoss()
+                if self.n_iters >= self._max_iters:
+                    break  # mid-epoch stop too (smoke runs, budget caps)
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                path = Path(self.cfg.PROFILE_DIR)
+                path.mkdir(parents=True, exist_ok=True)
+                prof.export_chrome_trace(str(path / "train_epoch.json"))
+        return trn_loss
+
+    def _check_finite(self, dtl: DTLoss) -> bool:
+        """act on non-finite losses per cfg.NAN_POLICY: "raise" aborts,
+        "warn" prints and keeps the update, "skip" prints (the step already
+        left the state as it was). Returns True if the losses are finite."""
+        vals = [float(v) for v in (dtl.o, dtl.b_rpn, dtl.c, dtl.b_rcnn, dtl.t)]
+        if all(np.isfinite(v) for v in vals):
+            return True
+        msg = f"non-finite loss at iter {self.n_iters}: {dtl!r}"
+        if self.cfg.NAN_POLICY == "raise":
+            raise FloatingPointError(msg)
+        action = "skipping update" if self.cfg.NAN_POLICY == "skip" else "continuing"
+        print(f"WARNING: {msg} ({action})")
+        return False
+
+    def validate(self) -> DTLoss:
+        val_loss = DTLoss()
+        # the same per-batch watchdog as train(). _in_validate marks an
+        # autosave's sidecar (val_pending), so a restarted process resumes
+        # into this validation instead of skipping the epoch's val loss.
+        self._in_validate = True
+        try:
+            for batch in prefetch(iter(self.val_loader)):
+                val_loss = val_loss + _host_loss(self._eval_step(batch))
+                self._check_host_memory()
+        finally:
+            self._in_validate = False
+        return val_loss
+
+    def _report_images(self) -> Dict[str, object]:
+        """detection overlays on the fixed report set (reference
+        trainer.py:324-340): the Detector on each report pair, boxes and
+        the top-3 class confidences drawn, both frames side by side, saved
+        under OUTPUT_DIR/report."""
+        if self.rep_manager is None:
+            return {}
+        from PIL import Image
+
+        from .inference import Detector
+
+        if self._report_detector is None:
+            # one Detector for every epoch: it runs the live model
+            self._report_detector = Detector(self.model, self.cfg, self.device)
+        detector = self._report_detector
+        rep_dir = self.output_dir / "report"
+        rep_dir.mkdir(exist_ok=True)
+        images = {}
+        try:
+            for n in range(len(self.rep_manager)):
+                i0, i1 = self.rep_manager[n]
+                confs0, confs1, boxes0, boxes1, _tracks = detector(i0.im, i1.im)
+                im0 = _overlay(i0.im, confs0, boxes0)
+                im1 = _overlay(i1.im, confs1, boxes1)
+                cat = Image.fromarray(np.concatenate([np.array(im0), np.array(im1)], axis=1))
+                cat.save(rep_dir / f"pair_{n}.png")
+                images[f"pair_{n}"] = cat
+        finally:
+            self.model.train()  # the Detector put the shared model in eval mode
+        return images
+
+    def report(self, trn_loss: DTLoss, val_loss: DTLoss) -> None:
+        def avg(dtl: DTLoss, prefix: str) -> Dict[str, float]:
+            c = max(float(dtl.count), 1.0)
+            return {f"{prefix}_{k}": float(v) / c for k, v in dtl.asdict().items()}
+
+        metrics = {**avg(trn_loss, "trn"), **avg(val_loss, "val")}
+        metrics["step"] = self.step_count
+        metrics["dropped_labels"] = self.trn_loader.dropped_labels
+        images = self._report_images()
+        wandb = _active_wandb()
+        if wandb is not None and images:
+            metrics = dict(metrics) | {k: wandb.Image(im) for k, im in images.items()}
+        self.logger(metrics)
+        print(" ".join([repr(trn_loss), repr(val_loss)]))
+
+    def checkpoint(self, path: Optional[str] = None) -> None:
+        """save the model's state_dict, the optimizer's (SGD momentum) and
+        the step counter with torch.save (written to a temporary file, then
+        renamed), and the loop's host state in `<path>.meta.json`. The
+        default path keeps a rotating history of the last CHECKPOINT_KEEP
+        saves beside the latest-best `ckpt`."""
+        default = path is None
+        path = Path(path or self.output_dir / "ckpt").absolute()
+        tmp = path.with_name(path.name + ".tmp")
+        torch.save(
+            {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "step": self.step_count},
+            tmp,
+        )
+        os.replace(tmp, path)
+        # host-side loop state the weights cannot carry: a resume continues
+        # early stopping, progress accounting and the shuffle sequence
+        Path(f"{path}.meta.json").write_text(
+            json.dumps(
+                {
+                    "step": self.step_count,
+                    "n_iters": self.n_iters,
+                    "best_val_loss": self.best_val_loss,
+                    "iters_no_improvement": self.iters_no_improvement,
+                    "loader_epoch": self.trn_loader.epoch,
+                    "dropped_labels": self.trn_loader.dropped_labels,
+                    # true only for a watchdog autosave inside validate():
+                    # the epoch's val loss was never computed
+                    "val_pending": self._in_validate,
+                }
+            )
+        )
+        if default and self.cfg.CHECKPOINT_KEEP > 0:
+            hist = path.parent / f"ckpt_step_{self.step_count:08d}"
+            if not hist.exists():
+                shutil.copyfile(path, hist)
+            old = sorted(path.parent.glob("ckpt_step_*"))
+            for p in old[: -self.cfg.CHECKPOINT_KEEP]:
+                p.unlink()
+
+    def _pick_restore_path(self) -> Path:
+        """the most recently written of the latest-best `ckpt` and the
+        watchdog's `ckpt_autosave`, by sidecar mtime, not by step: a stale
+        autosave of an earlier run in the same OUTPUT_DIR may carry a higher
+        step and must lose to this run's fresh `ckpt`. Ties go to `ckpt`."""
+        best_p, best_mtime = None, -1.0
+        for name in ("ckpt_autosave", "ckpt"):
+            p = (self.output_dir / name).absolute()
+            if not p.exists():
+                continue
+            try:
+                mtime = Path(f"{p}.meta.json").stat().st_mtime
+            except OSError:
+                mtime = p.stat().st_mtime
+            if mtime >= best_mtime:
+                best_p, best_mtime = p, mtime
+        return best_p or self.output_dir / "ckpt"
+
+    def restore(self, path: Optional[str] = None) -> None:
+        """load a checkpoint (by default `_pick_restore_path`): the weights,
+        the momentum and the step; `n_iters` rewinds to step * BATCH_SIZE, the
+        training sampler is salted with the step (a seeded sampler would
+        otherwise replay its stream), and the sidecar, where there is one,
+        restores the loop's host state."""
+        path = Path(path if path is not None else self._pick_restore_path()).absolute()
+        # reset first: a history file (no sidecar) must not inherit a stale
+        # val_pending of an earlier restore
+        self._val_pending = False
+        state = torch.load(path, map_location=self.device, weights_only=True)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self._train_step.steps = int(state["step"])
+        # --max-iters counts total instances on a resume, so the watchdog's
+        # exec-restart terminates
+        self.n_iters = self.step_count * self.cfg.BATCH_SIZE
+        reseed = getattr(self.trn_loader.manager, "reseed", None)
+        if callable(reseed):
+            reseed(self._proc_salt(self.step_count))
+        try:
+            meta = json.loads(Path(f"{path}.meta.json").read_text())
+        except (OSError, ValueError):
+            return
+        self.n_iters = int(meta.get("n_iters", self.n_iters))
+        self.best_val_loss = float(meta.get("best_val_loss", float("inf")))
+        self.iters_no_improvement = int(meta.get("iters_no_improvement", 0))
+        self.trn_loader.epoch = int(meta.get("loader_epoch", 0))
+        self.trn_loader.dropped_labels = int(meta.get("dropped_labels", 0))
+        self._val_pending = bool(meta.get("val_pending", False))
+
+    def step(self) -> None:
+        trn_loss = self.train()
+        val_loss = self.validate()
+        self.report(trn_loss, val_loss)
+        self._note_val_result(val_loss)
+
+    def _note_val_result(self, val_loss: DTLoss) -> None:
+        """early stopping and the best-`ckpt` save for one epoch's val loss."""
+        scalar = float(val_loss.to_scalar(self._coefs))
+        if scalar < self.best_val_loss:
+            self.best_val_loss = scalar
+            self.iters_no_improvement = 0
+            self.checkpoint()
+        else:
+            self.iters_no_improvement += 1
+
+    def _host_rss_limit_gb(self) -> float:
+        """cfg.HOST_RSS_LIMIT_GB: 0 disables (inf), > 0 is the bound in GB,
+        < 0 is 70% of MemTotal. Cached per cfg value; a failed /proc read
+        disables the check for this call only."""
+        lim = self.cfg.HOST_RSS_LIMIT_GB
+        if self._rss_limit_cache is not None and self._rss_limit_cache[0] == lim:
+            return self._rss_limit_cache[1]
+        if lim == 0:
+            limit = float("inf")
+        elif lim > 0:
+            limit = float(lim)
+        else:
+            limit = None
+            try:
+                with open("/proc/meminfo") as f:
+                    for line in f:
+                        if line.startswith("MemTotal"):
+                            limit = 0.7 * int(line.split()[1]) / 1e6
+                            break
+            except (OSError, ValueError, IndexError):
+                limit = None
+            if limit is None:
+                return float("inf")
+        self._rss_limit_cache = (lim, limit)
+        return limit
+
+    @staticmethod
+    def _host_rss_gb() -> float:
+        """the current resident set in GB, or 0.0 (watchdog inert) where it
+        cannot be read (ru_maxrss is a lifetime peak that survives execve,
+        so it would re-trip the limit after every restart)."""
+        try:
+            page = os.sysconf("SC_PAGE_SIZE")
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * page / 1e9
+        except (OSError, IndexError, ValueError):
+            return 0.0
+
+    def _check_host_memory(self) -> None:
+        """above cfg.HOST_RSS_LIMIT_GB: autosave to `ckpt_autosave` (never
+        the latest-best `ckpt`; restore() picks the newer of the two) and
+        call `on_host_memory_limit`; with no handler, warn once and disarm."""
+        if self._rss_watchdog_disarmed:
+            return
+        limit = self._host_rss_limit_gb()
+        if limit == float("inf"):
+            return
+        rss_gb = self._host_rss_gb()
+        if not rss_gb > limit:
+            return
+        print(
+            f"WARNING: host RSS {rss_gb:.1f} GB exceeds HOST_RSS_LIMIT_GB={limit:.1f}; "
+            f"autosaving at step {self.step_count}"
+        )
+        self.checkpoint(self.output_dir / "ckpt_autosave")
+        if self.on_host_memory_limit is not None:
+            self.on_host_memory_limit()
+        else:
+            self._rss_watchdog_disarmed = True
+            print(
+                "WARNING: no on_host_memory_limit handler installed; watchdog disarmed after one autosave "
+                "(install a handler or restart the process to re-arm)"
+            )
+
+    def run(self, max_iters: float = float("inf")) -> None:
+        self._max_iters = max_iters
+        if self._val_pending:
+            # the restored autosave was written inside validate(): finish
+            # that epoch's validation first, so its early-stopping comparison
+            # and best-`ckpt` save are not lost; an empty train loss keeps
+            # the report's keys
+            self._val_pending = False
+            val_loss = self.validate()
+            print(f"resumed validation: {val_loss!r}")
+            self.report(DTLoss(), val_loss)
+            self._note_val_result(val_loss)
+        while not (self.iters_no_improvement > self.cfg.PATIENCE or self.n_iters >= max_iters):
+            self.step()
+            if self.iters_no_improvement > self.cfg.PATIENCE or self.n_iters >= max_iters:
+                break  # done: no exec-restart just to exit
+            self._check_host_memory()
+        # the endpoint of a bounded run under its own name (never the
+        # latest-best `ckpt`, never in the history)
+        self.checkpoint(self.output_dir / "ckpt_final")
+        # a clean end drops the watchdog's autosave, so it cannot shadow a
+        # later run's checkpoints in a reused OUTPUT_DIR
+        auto = self.output_dir / "ckpt_autosave"
+        if auto.exists():
+            auto.unlink()
+            Path(f"{auto}.meta.json").unlink(missing_ok=True)

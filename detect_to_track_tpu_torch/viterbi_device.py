@@ -210,8 +210,9 @@ def _viterbi_lib() -> ctypes.CDLL:
     lib = _build.load("viterbi")
     lib.d2t_viterbi_multi_link.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.d2t_viterbi_multi_link.restype = ctypes.c_int
-    lib.d2t_viterbi_tables_in_smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.d2t_viterbi_tables_in_smem.restype = ctypes.c_int
+    for fn in (lib.d2t_viterbi_tables_in_smem, lib.d2t_viterbi_fits):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -223,10 +224,11 @@ def _tables_in_smem(lib: ctypes.CDLL, t1: int, d: int) -> bool:
 
 def viterbi_multi_link_cuda(score_seq: torch.Tensor, init_scores: torch.Tensor) -> DevicePaths:
     """launch the linker kernel (ops/csrc/viterbi.cu) on (T-1, D, D) and
-    (D,) float32 CUDA tensors, 1 <= D <= 1024: the whole extraction in one
-    block of D threads, on a scratch copy of score_seq. Returns DevicePaths
-    on the card without waiting for it. Counts each launch in
-    `viterbi_multi_link_cuda.launches`."""
+    (D,) float32 CUDA tensors: the whole extraction in one block of
+    min(D, 1024) threads (ceil(D / 1024) slots each), on a scratch copy of
+    score_seq. D is bounded only by the per-slot shared memory (about
+    28,000 slots). Returns DevicePaths on the card without waiting for it.
+    Counts each launch in `viterbi_multi_link_cuda.launches`."""
     if not (score_seq.is_cuda and init_scores.is_cuda) or score_seq.device != init_scores.device:
         raise ValueError(
             f"the linker kernel needs CUDA tensors on one device, got {score_seq.device} and {init_scores.device}"
@@ -238,9 +240,9 @@ def viterbi_multi_link_cuda(score_seq: torch.Tensor, init_scores: torch.Tensor) 
             f"expected (T-1, D, D) and (D,) scores, got {tuple(score_seq.shape)} and {tuple(init_scores.shape)}"
         )
     t1, d = score_seq.shape[0], score_seq.shape[1]
-    if not 1 <= d <= 1024:
-        raise ValueError(f"the linker kernel runs one thread per slot: D must be in [1, 1024], got {d}")
     lib = _viterbi_lib()
+    if d < 1 or not lib.d2t_viterbi_fits(t1, d):
+        raise ValueError(f"the linker kernel's shared memory does not hold D = {d} slots at T - 1 = {t1}")
     dev = score_seq.device
     t = t1 + 1
     cap = t * d

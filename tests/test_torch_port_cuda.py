@@ -29,9 +29,13 @@ CORR_CASES = [
     (1, 9, 64, 16, 1, 1),  # d_max 1: one warp
 ]
 DTYPES = [torch.bfloat16, torch.float32]
+# wide windows: d_max 20 (the bf16 forward's first tiled d, the f32
+# forward's last untiled one), 24 (the bf16 backward's KS = 4 edge) and 32
+# (KS = 5; both forwards tiled, the bf16 one in 4 x 4 tiles), stride 2 tiled
+WIDE_CASES = [(1, 20, 45, 40, 20, 1), (1, 20, 45, 40, 24, 1), (1, 24, 50, 64, 32, 1), (2, 24, 40, 24, 24, 2)]
 # the forward also at batch 7: the tracker over the 7 adjacent pairs of an
 # 8-frame detect_clip chunk
-FWD_CASES = CORR_CASES + [(7, 38, 75, 512, 8, 1)]
+FWD_CASES = CORR_CASES + [(7, 38, 75, 512, 8, 1)] + WIDE_CASES
 
 
 @pytest.fixture
@@ -81,9 +85,8 @@ def test_correlation_wrapper_on_card(cuda):
 
 
 # the forward's cases plus H = 48, the height the TPU package runs through
-# its halo'd multi-tile dFM1 kernel (K4), and d_max 20, the widest band (KS
-# = 4) of the bf16 backward kernels (bf16 K1 refuses d_max >= 20)
-BWD_CASES = CORR_CASES + [(2, 48, 75, 384, 8, 1), (1, 48, 40, 64, 8, 2), (1, 20, 45, 40, 20, 1)]
+# its halo'd multi-tile dFM1 kernel (K4), and the wide windows
+BWD_CASES = CORR_CASES + [(2, 48, 75, 384, 8, 1), (1, 48, 40, 64, 8, 2)] + WIDE_CASES
 
 
 def _assert_grad_matches_plain(got, ref):
@@ -172,8 +175,9 @@ def _assert_same_paths(got, ref):
 
 
 # (seed, T, D): D a warp multiple and not, one slot, 1024 slots (the most
-# threads a block takes), the chip clip's 22 x 128
-LINK_CASES = [(0, 4, 6), (1, 8, 32), (2, 22, 128), (3, 12, 100), (4, 6, 1), (5, 3, 1024)]
+# threads a block takes), the chip clip's 22 x 128, and 1500 and 2048 slots
+# (two slots for some threads or for all)
+LINK_CASES = [(0, 4, 6), (1, 8, 32), (2, 22, 128), (3, 12, 100), (4, 6, 1), (5, 3, 1024), (8, 3, 1500), (9, 3, 2048)]
 
 
 @pytest.mark.parametrize("dyadic", [False, True], ids=["uniform", "dyadic"])
@@ -228,8 +232,10 @@ def test_linker_kernel_rejects_bad_input(cuda):
         viterbi_device.viterbi_multi_link_cuda(seq.double(), torch.zeros(4, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="D, D"):
         viterbi_device.viterbi_multi_link_cuda(seq, torch.zeros(3, device=cuda))
-    with pytest.raises(ValueError, match="1024"):
-        viterbi_device.viterbi_multi_link_cuda(torch.zeros(1, 1025, 1025, device=cuda), torch.zeros(1025, device=cuda))
+    # D is bounded by the per-slot shared memory (init scores, counts and
+    # the path): 60,000 steps of a 4-slot clip do not fit
+    with pytest.raises(ValueError, match="shared memory"):
+        viterbi_device.viterbi_multi_link_cuda(torch.zeros(60000, 4, 4, device=cuda), torch.zeros(4, device=cuda))
 
 
 def test_linker_raises_without_its_kernel(cuda, monkeypatch):

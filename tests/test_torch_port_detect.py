@@ -4,6 +4,7 @@ tests/test_full_graph_parity.py::test_full_pipeline_images_to_detections_parity)
 plus the port's import rules."""
 
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -155,7 +156,14 @@ def _port_modules():
     return mods
 
 
+ENTRY_POINTS = ("train", "evaluate", "checks", "track_clip")
+NEW_MODULES = ("trainer", "evaluation", "filtering", "vis", "data.imagenet", "data.pascal", "data.sampling")
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    mods = _port_modules()
+    for name in ENTRY_POINTS + NEW_MODULES:
+        assert f"detect_to_track_tpu_torch.{name}" in mods, name
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules() + ['chip_smoke']!r}:\n"
@@ -168,6 +176,41 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+def test_entry_points_import_no_jax(tmp_path):
+    """each `python -m detect_to_track_tpu_torch.<entry>` run end to end
+    with --device cpu on a tiny config (the imports its main makes at run
+    time included): no JAX module and nothing of the JAX package loaded."""
+    from tests.test_torch_port_train import TINY
+
+    cfg = dict(TINY, TRN_SIZE=2, VAL_SIZE=2, REP_SIZE=1, CHECKPOINT_KEEP=0, OUTPUT_DIR=str(tmp_path / "out"))
+    yaml_path = tmp_path / "tiny.yaml"
+    yaml_path.write_text("".join(f"{k}: {list(v) if isinstance(v, tuple) else v}\n" for k, v in cfg.items()))
+    c = str(yaml_path)
+    runs = [
+        ("train", ["-c", c, "--synthetic", "--max-iters", "2", "--device", "cpu"]),
+        ("evaluate", ["-c", c, "--synthetic", "--n-samples", "2", "--ckpt", str(tmp_path / "out" / "ckpt"),
+                      "--all-ckpts", "--device", "cpu"]),
+        ("checks", ["-c", c, "--synthetic", "--sampler", "--anchors", "--out", str(tmp_path / "chk"),
+                    "--device", "cpu"]),
+        ("track_clip", ["-c", c, "--n-frames", "3", "--frame-chunk", "2", "--device", "cpu"]),
+    ]
+    assert [name for name, _ in runs] == list(ENTRY_POINTS)
+    code = (
+        "import runpy, sys\n"
+        f"for name, argv in {runs!r}:\n"
+        "    sys.argv = [name] + argv\n"
+        "    runpy.run_module('detect_to_track_tpu_torch.' + name, run_name='__main__', alter_sys=True)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'flax') or m.startswith(('jax.', 'flax.'))\n"
+        "             or m == 'detect_to_track_tpu' or m.startswith('detect_to_track_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('entry points ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    shutil.rmtree(tmp_path / "out", ignore_errors=True)  # two ~300 MB checkpoints
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "entry points ok" in out.stdout
 
 
 def test_port_sources_import_no_jax():

@@ -274,9 +274,10 @@ def test_kernel_schedule_matches_plain(case):
 
 
 # The linker kernel's own source, compiled for the CPU: a CUDA block becomes
-# D std::threads, __syncthreads a std::barrier, shared memory a buffer. It
-# runs the kernel's code, barriers and shared state included, on CPU
-# threads (warp-level behaviour aside: the kernel has none).
+# min(D, D2T_VITERBI_MAX_THREADS) std::threads, __syncthreads a
+# std::barrier, shared memory a buffer. It runs the kernel's code, barriers
+# and shared state included, on CPU threads (warp-level behaviour aside: the
+# kernel has none).
 _CUDA_ON_CPU = r"""
 #include <atomic>
 #include <barrier>
@@ -312,14 +313,18 @@ inline unsigned char smem_raw[1 << 20];
 _CPU_LAUNCH = r"""
 extern "C" int cpu_launch(float* seq, const float* init, float* S, int* P, int* spans, float* scores,
                           int* nodes, int* n_paths, int T1, int D) {
-  std::barrier<> bar(D);
+  const int nth = block_threads(D);
+  std::barrier<> bar(nth);
   g_bar = &bar;
-  blockDim.x = D;
+  blockDim.x = nth;
   std::vector<std::thread> threads;
-  for (int i = 0; i < D; ++i)
+  for (int i = 0; i < nth; ++i)
     threads.emplace_back([=] {
       threadIdx.x = i;
-      viterbi_multi_link_kernel(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
+      if (D <= kMaxThreads)
+        viterbi_multi_link_kernel<true>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
+      else
+        viterbi_multi_link_kernel<false>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
     });
   for (auto& t : threads) t.join();
   return 0;
@@ -327,8 +332,9 @@ extern "C" int cpu_launch(float* seq, const float* init, float* S, int* P, int* 
 """
 
 
-@pytest.fixture(scope="module")
-def linker_kernel_on_cpu(tmp_path_factory):
+def _linker_kernel_on_cpu(out, max_threads=None):
+    """ops/csrc/viterbi.cu built for CPU threads into `out`, with the
+    kernel's default thread cap or `max_threads`."""
     src = (Path(tvd.__file__).parent / "ops" / "csrc" / "viterbi.cu").read_text()
     edits = [
         ("#include <cuda_runtime.h>\n#include <math_constants.h>\n", _CUDA_ON_CPU),
@@ -341,14 +347,42 @@ def linker_kernel_on_cpu(tmp_path_factory):
         assert old in src, f"viterbi.cu changed: update this emulation ({old.strip()!r} not found)"
         src = src.replace(old, new, 1)
     src = src[: src.index('extern "C" {')] + _CPU_LAUNCH
-    out = tmp_path_factory.mktemp("linker_cpu")
     (out / "viterbi_cpu.cpp").write_text(src)
     cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-o", str(out / "lib.so"), str(out / "viterbi_cpu.cpp")]
+    if max_threads is not None:
+        cmd.append(f"-DD2T_VITERBI_MAX_THREADS={max_threads}")
     proc = subprocess.run(cmd + ["-lpthread"], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out / "lib.so"))
     lib.cpu_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int]
     return lib
+
+
+@pytest.fixture(scope="module")
+def linker_kernel_on_cpu(tmp_path_factory):
+    return _linker_kernel_on_cpu(tmp_path_factory.mktemp("linker_cpu"))
+
+
+@pytest.fixture(scope="module")
+def linker_kernel_32_threads(tmp_path_factory):
+    """the kernel built with at most 32 threads per block, so D > 32 runs
+    several slots per thread, as D > 1024 does on the card."""
+    return _linker_kernel_on_cpu(tmp_path_factory.mktemp("linker_cpu_32"), max_threads=32)
+
+
+def _run_cpu_kernel(lib, seq, ini, tables_in_smem=True):
+    """one cpu_launch on copies of the problem -> (n, spans, scores, nodes)."""
+    t1, dd = seq.shape[0], seq.shape[1]
+    work = seq.copy()
+    tables = [np.zeros((t1, dd), np.float32), np.zeros((t1, dd), np.int32)]
+    spans = np.full((t1 + 1) * dd * 2, 7, np.int32)
+    scores = np.full((t1 + 1) * dd, 7, np.float32)
+    nodes = np.full((t1 + 1) * dd * (t1 + 1), 7, np.int32)
+    n = np.zeros(1, np.int32)
+    ptrs = [None, None] if tables_in_smem else [x.ctypes.data for x in tables]
+    lib.cpu_launch(work.ctypes.data, ini.ctypes.data, *ptrs, spans.ctypes.data, scores.ctypes.data,
+                   nodes.ctypes.data, n.ctypes.data, t1, dd)
+    return int(n[0]), spans.reshape(-1, 2), scores, nodes.reshape(-1, t1 + 1)
 
 
 @pytest.mark.parametrize("case", [(0, 4, 6), (1, 8, 32), (3, 12, 20), (4, 6, 1), (9, 10, 33), (8, 2, 5)], ids=str)
@@ -371,21 +405,41 @@ def test_linker_kernel_source_on_cpu_threads(linker_kernel_on_cpu, case):
     problems.append((np.array([[[-np.inf, 0.0], [-np.inf, -np.inf]]], np.float32), np.zeros(2, np.float32)))
     for seq, ini in problems:
         ref = _device_paths(tvd.viterbi_multi_link_ref(torch.from_numpy(seq), torch.from_numpy(ini)))
-        t1, dd = seq.shape[0], seq.shape[1]
         for tables_in_smem in (True, False):
-            work = seq.copy()
-            tables = [np.zeros((t1, dd), np.float32), np.zeros((t1, dd), np.int32)]
-            spans = np.full((t1 + 1) * dd * 2, 7, np.int32)
-            scores = np.full((t1 + 1) * dd, 7, np.float32)
-            nodes = np.full((t1 + 1) * dd * (t1 + 1), 7, np.int32)
-            n = np.zeros(1, np.int32)
-            ptrs = [None, None] if tables_in_smem else [x.ctypes.data for x in tables]
-            linker_kernel_on_cpu.cpu_launch(work.ctypes.data, ini.ctypes.data, *ptrs, spans.ctypes.data,
-                                            scores.ctypes.data, nodes.ctypes.data, n.ctypes.data, t1, dd)
-            assert int(n[0]) == ref[0]
-            np.testing.assert_array_equal(spans.reshape(-1, 2), ref[1])
+            n, spans, scores, nodes = _run_cpu_kernel(linker_kernel_on_cpu, seq, ini, tables_in_smem)
+            assert n == ref[0]
+            np.testing.assert_array_equal(spans, ref[1])
             np.testing.assert_array_equal(scores.view(np.int32), ref[2].view(np.int32))
-            np.testing.assert_array_equal(nodes.reshape(-1, t1 + 1), ref[3])
+            np.testing.assert_array_equal(nodes, ref[3])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_linker_kernel_several_slots_per_thread(linker_kernel_32_threads, seed):
+    """the kernel built with 32 threads per block at D = 100 (4 slots for
+    some threads, 3 for others, as D > 1024 gives on the card), dyadic
+    scores with many exact ties, tables in shared memory and in a global
+    scratch: the plain version's paths bitwise, and the native linker's."""
+    rng = np.random.RandomState(seed)
+    T, d = 8, 100
+    dims = rng.randint(d // 2, d + 1, size=T)
+    seq = np.full((T - 1, d, d), -np.inf, np.float32)
+    for s in range(T - 1):
+        seq[s, : dims[s], : dims[s + 1]] = rng.randint(0, 8, (dims[s], dims[s + 1])) / 4.0
+    seq[rng.rand(*seq.shape) < 0.3] = -np.inf
+    ini = np.full(d, -np.inf, np.float32)
+    ini[: dims[0]] = rng.randint(0, 4, dims[0]) / 4.0
+    ref = _device_paths(tvd.viterbi_multi_link_ref(torch.from_numpy(seq), torch.from_numpy(ini)))
+    for tables_in_smem in (True, False):
+        n, spans, scores, nodes = _run_cpu_kernel(linker_kernel_32_threads, seq, ini, tables_in_smem)
+        assert n == ref[0]
+        np.testing.assert_array_equal(spans, ref[1])
+        np.testing.assert_array_equal(scores.view(np.int32), ref[2].view(np.int32))
+        np.testing.assert_array_equal(nodes, ref[3])
+    # dyadic scores: every DP sum is exact in f32 and f64, so the native
+    # linker's trimmed paths are the kernel's
+    native = tv.viterbi_multi_link(list(seq.astype(np.float64)), list(ini.astype(np.float64)), use_native=True)
+    trimmed = [((int(a), int(b)), float(sc), nd[a : b + 1].tolist()) for (a, b), sc, nd in zip(spans[:n], scores[:n], nodes[:n])]
+    _assert_same_paths(trimmed, native)
 
 
 def test_linker_kernel_wrapper_takes_only_cuda_tensors():
