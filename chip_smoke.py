@@ -43,6 +43,16 @@ Phases, each printing a line:
      kernel counters reset before and read after, a `--resume` to 24 pairs
      that must restore the saved weights and momentum bitwise, then
      `evaluate.main --all-ckpts` over the rotated checkpoints.
+  8. ddp: data parallelism on the one card, a check of correctness and not
+     of scaling: make_parallel_train_step (DistributedDataParallel) at world
+     size 1 over NCCL against make_train_step, then two ranks (child
+     processes of this script, `--ddp-rank`) sharing the card over gloo: a
+     2-pair-per-rank step against the single-process 4-pair step,
+     make_parallel_detect against Detector.detect_pairs, and train.main with
+     NUM_DEVICES 2 for one epoch (ranks bitwise equal, rank 0 alone writes).
+  9. options: HOST_S2D's Detector against the plain stem, a REMAT step
+     against the plain step, sat against einsum pooling at the R-FCN head's
+     shapes, and checked_loss_fn naming a poisoned loss component.
 The kernels phase also holds the backward kernels (corr_bwd_fm0,
 corr_bwd_fm1) against autograd through the plain version; the linker
 kernel is held in the clip phase. The script prints
@@ -343,6 +353,29 @@ def phase_bwd_kernels(pairs: int):
     return rows
 
 
+def slice_model(cfg, device="cuda"):
+    """the slice phase's model: reference-keyed random weights (seed 0) with
+    the box-regression heads at trained-net magnitudes (x 0.002), so decodes
+    stay inside the clamp (as the JAX package's pipeline parity test does)."""
+    from detect_to_track_tpu_torch.models import DetectTrackModule
+    from detect_to_track_tpu_torch.models.convert import load_reference_state_dict, random_reference_state_dict
+
+    sd = random_reference_state_dict(cfg, seed=0)
+    for k in ("rpn.reg_fc.weight", "rpn.reg_fc.bias", "rcnn.reg_head.sm_conv.weight", "rcnn.reg_head.sm_conv.bias"):
+        sd[k] = sd[k] * 0.002
+    model = DetectTrackModule.from_config(cfg, device=device)
+    model.load_state_dict(load_reference_state_dict(sd))
+    return model
+
+
+def slice_pairs(cfg):
+    """BATCH_SIZE seed-0 uint8 noise pairs at INPUT_SHAPE."""
+    import numpy as np
+
+    h, w = cfg.INPUT_SHAPE
+    return np.random.default_rng(0).integers(0, 256, (cfg.BATCH_SIZE, 2, h, w, 3), dtype=np.uint8)
+
+
 def phase_slice(smi: str):
     """the full-width main path: Detector.__call__ on single pairs and
     Detector.detect_pairs on BATCH_SIZE pairs, kernel counters read around
@@ -352,24 +385,15 @@ def phase_slice(smi: str):
 
     from detect_to_track_tpu_torch.config import load_config
     from detect_to_track_tpu_torch.inference import Detector
-    from detect_to_track_tpu_torch.models import DetectTrackModule
-    from detect_to_track_tpu_torch.models.convert import load_reference_state_dict, random_reference_state_dict
     from detect_to_track_tpu_torch.ops.correlation import corr_fwd_cuda
 
     cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
     t0 = time.perf_counter()
-    sd = random_reference_state_dict(cfg, seed=0)
-    # box-regression heads at trained-net magnitudes so decodes stay inside
-    # the clamp (as the JAX package's pipeline parity test does)
-    for k in ("rpn.reg_fc.weight", "rpn.reg_fc.bias", "rcnn.reg_head.sm_conv.weight", "rcnn.reg_head.sm_conv.bias"):
-        sd[k] = sd[k] * 0.002
-    model = DetectTrackModule.from_config(cfg)
-    model.load_state_dict(load_reference_state_dict(sd))
+    model = slice_model(cfg)
     det = Detector(model, cfg)
     h, w = cfg.INPUT_SHAPE
     p = cfg.BATCH_SIZE
-    rng = np.random.default_rng(0)
-    pairs = rng.integers(0, 256, (p, 2, h, w, 3), dtype=np.uint8)
+    pairs = slice_pairs(cfg)
     n_params = sum(t.numel() for t in model.state_dict().values())
     log(f"[slice] {cfg.BACKBONE_ARCH} {h}x{w} fm {cfg.fm_shape} anchors {cfg.n_anchors} "
         f"pre-NMS {cfg.pre_nms_cap_eval}/{cfg.pre_nms_topk_eval} MAX_ROIS {cfg.MAX_ROIS} MAX_DETS {cfg.MAX_DETS} "
@@ -700,35 +724,18 @@ def phase_train(smi: str, steps: int = 3):
     before and read after: 3 corr_fwd, 2 corr_bwd_fm0 and 2 corr_bwd_fm1
     launches per step (c3 comes from frozen stages, so its correlation has
     no backward). Returns the counts."""
-    import numpy as np
     import torch
 
     from detect_to_track_tpu_torch import trainer
     from detect_to_track_tpu_torch.config import load_config
-    from detect_to_track_tpu_torch.data.synthetic import SyntheticVIDManager
-    from detect_to_track_tpu_torch.models import DetectTrackModule
     from detect_to_track_tpu_torch.ops import correlation as corr
 
     cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
     p = cfg.BATCH_SIZE
     t0 = time.perf_counter()
-    # the package's own seeded init (lecun-normal, identity FrozenBatchNorm),
-    # as the JAX package starts training: the reference-keyed random
-    # weights of the slice phase grow c5 to ~4e3 and the track loss to ~1e8,
-    # and the first lr 1e-2 update diverges. Box heads scaled as there.
-    model = DetectTrackModule.from_config(cfg, seed=0)
-    with torch.no_grad():
-        for head in (model.rpn.reg_fc, model.rcnn.reg_sm_conv):
-            head.weight.mul_(0.002)
-            head.bias.mul_(0.002)
+    model = train_model(cfg)
     step = trainer.make_train_step(model, cfg, trainer.make_optimizer(cfg, model))
-    manager = SyntheticVIDManager(n_samples=p * (steps + 1), image_hw=cfg.INPUT_SHAPE, n_classes=cfg.N_CLASSES)
-    loader = trainer.BatchLoader(manager, p, cfg, seed=0)
-    try:
-        # uint8 frames, as PIL sources pack: the /255 runs on the card
-        batches = [b._replace(images=np.rint(b.images * 255.0).astype(np.uint8)) for b in loader]
-    finally:
-        loader.close()
+    batches = train_batches(cfg, steps + 1)
     n_train = sum(t.numel() for t in model.parameters() if t.requires_grad)
     log(f"[train] {cfg.BACKBONE_ARCH} {cfg.INPUT_SHAPE} x{p} pairs {cfg.COMPUTE_DTYPE}, "
         f"FIRST_TRAINABLE_STAGE {cfg.FIRST_TRAINABLE_STAGE}: {n_train} trainable weights, "
@@ -784,6 +791,40 @@ def phase_train(smi: str, steps: int = 3):
     train_track_grads(model, cfg, batches[0])
     phase_profile(f"train step x{p}", lambda: step(batches[1]))
     return launches
+
+
+def train_model(cfg, device="cuda"):
+    """the train phase's model: the package's own seeded init (seed 0;
+    lecun-normal, identity FrozenBatchNorm), as the JAX package starts
+    training -- the reference-keyed random weights of the slice phase grow
+    c5 to ~4e3 and the track loss to ~1e8, and the first lr 1e-2 update
+    diverges -- with the box heads scaled by 0.002 as there."""
+    import torch
+
+    from detect_to_track_tpu_torch.models import DetectTrackModule
+
+    model = DetectTrackModule.from_config(cfg, device=device, seed=0)
+    with torch.no_grad():
+        for head in (model.rpn.reg_fc, model.rcnn.reg_sm_conv):
+            head.weight.mul_(0.002)
+            head.bias.mul_(0.002)
+    return model
+
+
+def train_batches(cfg, n):
+    """n synthetic batches of BATCH_SIZE pairs at INPUT_SHAPE (seed 0),
+    packed as uint8 as PIL sources pack: the /255 runs on the card."""
+    import numpy as np
+
+    from detect_to_track_tpu_torch import trainer
+    from detect_to_track_tpu_torch.data.synthetic import SyntheticVIDManager
+
+    manager = SyntheticVIDManager(n_samples=cfg.BATCH_SIZE * n, image_hw=cfg.INPUT_SHAPE, n_classes=cfg.N_CLASSES)
+    loader = trainer.BatchLoader(manager, cfg.BATCH_SIZE, cfg, seed=0)
+    try:
+        return [b._replace(images=np.rint(b.images * 255.0).astype(np.uint8)) for b in loader]
+    finally:
+        loader.close()
 
 
 def phase_trainer(smi: str):
@@ -927,6 +968,507 @@ def phase_trainer(smi: str):
     shutil.rmtree(work, ignore_errors=True)
     return launches
 
+def _counters():
+    from detect_to_track_tpu_torch.ops import correlation as corr
+
+    return {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
+            "corr_bwd_fm1": corr.corr_bwd_fm1_cuda}
+
+
+def _zero_counts() -> None:
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _trainable(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+
+
+def _update_err(got: dict, ref: dict, init: dict):
+    """the largest difference of two updated weight sets, per tensor as a
+    share of the reference's largest update of that tensor: (worst share,
+    its tensor's name)."""
+    worst, name = 0.0, None
+    for k, r in ref.items():
+        upd = (r.float() - init[k].float()).abs().max().item()
+        err = (got[k].float() - r.float()).abs().max().item()
+        share = err / upd if upd > 0 else (0.0 if err == 0 else math.inf)
+        if share > worst:
+            worst, name = share, k
+    return worst, name
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+DDP_JOIN_S = 300.0
+# bf16 tolerances of the data-parallel checks: each rank's convolutions sum
+# 2 pairs where the single process sums 4, and DDP's all-reduce adds the two
+# halves, so the gradients differ by bf16 rounding (2^-8 relative per term)
+DDP_LOSS_RTOL = 2e-2
+DDP_UPDATE_SHARE = 5e-2  # of each tensor's largest update
+
+
+def phase_ddp(smi: str):
+    """data parallelism on the one card. This checks correctness, not
+    scaling: the machine has one H100, and two ranks that share it measure
+    nothing about several cards.
+
+    - world size 1, NCCL: make_parallel_train_step (DistributedDataParallel)
+      at full width from the train phase's init and batch against
+      make_train_step: the losses equal, the updated weights within 1e-2 of
+      each tensor's largest update, 3 / 2 / 2 kernel launches.
+    - world size 2 on the one card, gloo named explicitly (NCCL refuses two
+      ranks on one device): two child processes (ranks) run one step at 2
+      pairs per rank against the single-process 4-pair step (losses rtol
+      DDP_LOSS_RTOL, weights within DDP_UPDATE_SHARE of each tensor's
+      largest update), make_parallel_detect on the slice phase's pairs
+      against Detector.detect_pairs (bitwise on each rank's rows called
+      alone; the 4-pair call's valid counts), and train.main with NUM_DEVICES 2 over
+      a fixture ILSVRC tree for one 4-step epoch: the ranks end bitwise
+      equal and only rank 0 wrote the checkpoints and metrics.jsonl.
+    Returns the kernel launches of the phase, the ranks' included."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from detect_to_track_tpu_torch import trainer
+    from detect_to_track_tpu_torch.config import load_config, save_config
+    from detect_to_track_tpu_torch.parallel import init_distributed, make_mesh, make_parallel_train_step
+
+    cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
+    work = ROOT / "build" / "chip_smoke_ddp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    batch = train_batches(cfg, 1)[0]
+    log(f"[ddp] correctness on one card, not scaling: {cfg.BACKBONE_ARCH} {cfg.INPUT_SHAPE} x{cfg.BATCH_SIZE} pairs "
+        f"{cfg.COMPUTE_DTYPE}; card: {smi}")
+
+    # ---- the single-process reference step ----
+    model = train_model(cfg)
+    step = trainer.make_train_step(model, cfg, trainer.make_optimizer(cfg, model))
+    init = _trainable(model)
+    ref_losses = step(batch).vector()
+    ref = _trainable(model)
+    del model, step
+
+    # ---- world size 1, NCCL: counters from 0, read right after ----
+    init_distributed(torch.device("cuda", 0), backend="nccl", init_method=f"file://{work / 'store_nccl'}",
+                     world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        model = train_model(cfg)
+        step = make_parallel_train_step(model, cfg, trainer.make_optimizer(cfg, model), mesh)
+        _zero_counts()
+        t = time.perf_counter()
+        losses = step(batch).vector()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = _read_counts()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    share, worst = _update_err(_trainable(model), ref, init)
+    log(f"[ddp] world size 1 ({backend}): DDP step {ms:.1f} ms (its first, warm-up included), launches {launches}; "
+        f"losses {losses.tolist()} vs make_train_step {ref_losses.tolist()}; weights' largest difference "
+        f"{share:.3e} of the tensor's largest update ({worst}; tol 1e-2)")
+    if list(launches.values()) != [3, 2, 2]:
+        raise AssertionError(f"world-size-1 DDP step launches {launches}, expected 3 / 2 / 2")
+    if not torch.equal(losses, ref_losses):
+        raise AssertionError("world-size-1 DDP step losses differ from make_train_step's")
+    if not share <= 1e-2:
+        raise AssertionError(f"world-size-1 DDP step weights differ from make_train_step's: {share} ({worst})")
+    del model, step
+    saved = {"losses": ref_losses.cpu(), "init": {k: v.cpu() for k, v in init.items()},
+             "ref": {k: v.cpu() for k, v in ref.items()}}
+    del init, ref
+    torch.cuda.empty_cache()
+
+    # ---- world size 2 on the one card, gloo ----
+    subprocess.run([sys.executable, str(ROOT / "tools" / "make_fixture_tree.py"), str(work / "ILSVRC"),
+                    "--snippets", "4", "--frames", "8", "--det", "4"], check=True, capture_output=True, text=True)
+    tcfg = cfg.replace(DATA_ROOT=str(work / "ILSVRC"), TRN_SIZE=16, VAL_SIZE=8, REP_SIZE=2,
+                       OUTPUT_DIR=str(work / "output"), LOG_EVERY=4, CHECKPOINT_KEEP=2, NUM_DEVICES=2)
+    save_config(tcfg, str(work / "trainer.yaml"))
+    env = dict(os.environ, WORLD_SIZE="2", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    logs = [work / f"rank{r}.log" for r in range(2)]
+    procs = []
+    t = time.perf_counter()
+    try:
+        for r in range(2):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--ddp-rank", str(work)],
+                                              env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT,
+                                              stdout=f, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + DDP_JOIN_S
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t
+    codes = [proc.returncode for proc in procs]
+    if codes != [0, 0]:
+        tails = "\n".join(f"--- rank {r} (exit {c}) ---\n{logs[r].read_text()[-4000:]}" for r, c in enumerate(codes))
+        raise AssertionError(f"the world-size-2 ranks failed or outlived {DDP_JOIN_S} s:\n{tails}")
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+    log(f"[ddp] world size 2 on one card (gloo): both ranks done in {wall:.1f} s wall (start-up included)")
+    for r, rk in enumerate(ranks):
+        log(f"[ddp]   rank {r}: step ms {rk['step']['ms']} (first, then second), launches {rk['step']['launches']} "
+            f"in 2 steps; detect launches {rk['detect']['launches']}; train.main launches {rk['train']['launches']} "
+            f"in {rk['train']['steps']} steps ({rk['train']['seconds']:.1f} s); card: {smi}")
+
+    # 1. one step at 2 pairs per rank against the single process's 4-pair step
+    got = torch.load(work / "rank0_params.pt", weights_only=True)
+    share, worst = _update_err(got, saved["ref"], saved["init"])
+    loss = torch.tensor(ranks[0]["step"]["losses"])
+    loss_err = ((loss - saved["losses"]).abs() / saved["losses"].abs().clamp(min=1e-12)).max().item()
+    log(f"[ddp]   step vs the single-process 4-pair step: losses {loss.tolist()} vs {saved['losses'].tolist()} "
+        f"(largest relative difference {loss_err:.3e}, tol {DDP_LOSS_RTOL}); weights' largest difference "
+        f"{share:.3e} of the tensor's largest update ({worst}; tol {DDP_UPDATE_SHARE})")
+    if any(ranks[0]["step"][k] != ranks[1]["step"][k] for k in ("digest", "losses")):
+        raise AssertionError("the two ranks' weights or losses differ after the DDP step")
+    if not (loss_err <= DDP_LOSS_RTOL and share <= DDP_UPDATE_SHARE):
+        raise AssertionError("the 2-rank step disagrees with the single-process step")
+    for rk in ranks:
+        if rk["step"]["launches"] != {"corr_fwd": 6, "corr_bwd_fm0": 4, "corr_bwd_fm1": 4}:
+            raise AssertionError(f"a rank's two DDP steps launched {rk['step']['launches']}")
+    # 2. make_parallel_detect against Detector.detect_pairs: bitwise the
+    # ranks' rows as their own calls, and the 4-pair call's valid counts
+    det = ranks[0]["detect"]
+    log(f"[ddp]   make_parallel_detect on {cfg.BATCH_SIZE} pairs: bitwise Detector.detect_pairs on each rank's "
+        f"rows {det['rows_equal']}; valid per frame {det['valid_counts']}, the 4-pair call's {det['ref_valid_counts']}")
+    if not (det["rows_equal"] and det["valid_counts"] == det["ref_valid_counts"]) \
+            or ranks[1]["detect"]["digest"] != det["digest"]:
+        raise AssertionError(f"make_parallel_detect disagrees with Detector.detect_pairs: {det}")
+    for rk in ranks:
+        if rk["detect"]["launches"] != {"corr_fwd": 3, "corr_bwd_fm0": 0, "corr_bwd_fm1": 0}:
+            raise AssertionError(f"a rank's parallel detect launched {rk['detect']['launches']}")
+    # 3. train.main with NUM_DEVICES 2
+    out = Path(tcfg.OUTPUT_DIR)
+    files = sorted(x.name for x in out.iterdir())
+    lines = (out / "metrics.jsonl").read_text().splitlines()
+    log(f"[ddp]   train.main NUM_DEVICES 2: steps {[rk['train']['steps'] for rk in ranks]}, weights bitwise equal "
+        f"{ranks[0]['train']['digest'] == ranks[1]['train']['digest']}; torch.save by rank "
+        f"{[rk['train']['saves'] for rk in ranks]}; metrics.jsonl {len(lines)} lines; output {files}")
+    steps, val_batches = tcfg.TRN_SIZE // tcfg.BATCH_SIZE, tcfg.VAL_SIZE // tcfg.BATCH_SIZE
+    for r, rk in enumerate(ranks):
+        rep_pairs = tcfg.REP_SIZE if r == 0 else 0  # rank 0 alone reports
+        expected = {"corr_fwd": 3 * (steps + val_batches + rep_pairs), "corr_bwd_fm0": 2 * steps,
+                    "corr_bwd_fm1": 2 * steps}
+        if rk["train"]["launches"] != expected or rk["train"]["steps"] != steps:
+            raise AssertionError(f"rank {r}: train.main launches {rk['train']['launches']} != {expected}")
+    if ranks[0]["train"]["digest"] != ranks[1]["train"]["digest"]:
+        raise AssertionError("the ranks' weights differ after train.main")
+    if ranks[1]["train"]["saves"] or sorted(ranks[0]["train"]["saves"]) != ["ckpt.tmp", "ckpt_final.tmp"]:
+        raise AssertionError("a rank other than 0 wrote a checkpoint, or rank 0 did not write both")
+    if len(lines) != 2 or not all(name in files for name in ("ckpt", "ckpt_final", f"ckpt_step_{steps:08d}", "report")):
+        raise AssertionError(f"metrics.jsonl has {len(lines)} lines (one stream: 2) or an output is missing: {files}")
+    total = dict(launches)
+    for rk in ranks:
+        for part in ("step", "detect", "train"):
+            for k, v in rk[part]["launches"].items():
+                total[k] += v
+    shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def ddp_rank_main(work: Path) -> int:
+    """one rank of the ddp phase's world of 2 on the one card (RANK,
+    WORLD_SIZE, MASTER_ADDR and MASTER_PORT from the parent): a step and a
+    parallel detect in a gloo group over a file store, then train.main,
+    which joins its own group through the environment. Writes
+    rank{RANK}.json (and rank 0 its updated weights) into `work`."""
+    import hashlib
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from detect_to_track_tpu_torch import train, trainer
+    from detect_to_track_tpu_torch.config import load_config
+    from detect_to_track_tpu_torch.inference import Detector
+    from detect_to_track_tpu_torch.parallel import (
+        init_distributed,
+        make_mesh,
+        make_parallel_detect,
+        make_parallel_train_step,
+        shard_batch,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["RANK"])
+    dev = torch.device("cuda", 0)  # both ranks share the one card
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {}
+    cfg = load_config(str(ROOT / "cfg" / "default.yaml")).replace(NUM_DEVICES=2)
+    init_distributed(dev, backend="gloo", init_method=f"file://{work / 'store_gloo'}", world_size=2, rank=rank)
+    try:
+        mesh = make_mesh(2)
+        model = train_model(cfg)
+        step = make_parallel_train_step(model, cfg, trainer.make_optimizer(cfg, model), mesh)
+        batch = shard_batch(train_batches(cfg, 1)[0], mesh)
+        _zero_counts()
+        ms, losses = [], None
+        for i in range(2):
+            t = time.perf_counter()
+            dtl = step(batch)
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t) * 1e3, 1))
+            if i == 0:
+                losses = dtl.vector().tolist()
+                params = _trainable(model)
+                if rank == 0:
+                    torch.save({k: v.cpu() for k, v in params.items()}, work / "rank0_params.pt")
+                out["step"] = {"losses": losses, "digest": digest(params.values())}
+        out["step"].update(ms=ms, launches=_read_counts())
+        del model, step, params
+
+        smodel = slice_model(cfg)
+        det = Detector(smodel, cfg, dev)
+        pairs = slice_pairs(cfg)
+        # the 4-pair call, and each rank's 2 pairs as their own calls: the
+        # batch a convolution sees changes its algorithm and so the last
+        # bits, and the random weights' saturated confidences leave ties
+        # that those bits order
+        ref = det.detect_pairs(pairs)
+        half = len(pairs) // 2
+        per_rank = [det.detect_pairs(pairs[r * half : (r + 1) * half]) for r in range(2)]
+        detect = make_parallel_detect(smodel, cfg, mesh, dev)
+        _zero_counts()
+        got = detect(pairs, det.anchors)
+        torch.cuda.synchronize()
+        launches = _read_counts()
+        out["detect"] = {
+            "launches": launches,
+            "rows_equal": all(torch.equal(g, torch.cat([pr[i] for pr in per_rank])) for i, g in enumerate(got)),
+            "valid_counts": got.valid.sum(-1).tolist(), "ref_valid_counts": ref.valid.sum(-1).tolist(),
+            "digest": digest(got),
+        }
+        del smodel, det, detect
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    saves = []
+    save = torch.save
+
+    def counted(obj, f, *args, **kwargs):
+        saves.append(Path(f).name)
+        return save(obj, f, *args, **kwargs)
+
+    torch.save = counted
+    _zero_counts()
+    t = time.perf_counter()
+    try:
+        tr = train.main(["-c", str(work / "trainer.yaml"), "--device", "cuda:0", "--dist-backend", "gloo",
+                         "--max-iters", "16"])
+    finally:
+        torch.save = save
+    torch.cuda.synchronize()
+    out["train"] = {"seconds": time.perf_counter() - t, "launches": _read_counts(), "steps": tr.step_count,
+                    "digest": digest(p for p in tr.model.parameters()), "saves": saves}
+    (work / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def phase_options(smi: str):
+    """the configuration switches at full width (cfg/default.yaml):
+    - HOST_S2D: the backbone's c3 / c4 / c5 on host-packed frames against
+      the plain stem's, within 1e-4 (f32) and 3e-2 (bf16) of the largest
+      magnitude, and the bf16 Detector on the slice phase's pairs (3 K1 per
+      call, finite outputs, the plain stem's valid counts);
+    - REMAT: one training step (bf16, 4 pairs) against the plain step from
+      the same weights: the losses equal, 3 / 2 / 2 launches a step, two
+      more steps timed, the first step's weights
+      within 1e-2 of each tensor's largest update, and the track loss's
+      gradients wrt layer3 / layer4 within 1e-2 of their largest magnitude;
+    - sat against einsum pooling at the R-FCN head's shapes (38x75,
+      MAX_ROIS, k, BATCH_SIZE pairs), forward and gradient;
+    - checked_loss_fn naming a component made non-finite on purpose.
+    Returns the kernel launches of the phase."""
+    import torch
+
+    from detect_to_track_tpu_torch import trainer
+    from detect_to_track_tpu_torch.config import load_config
+    from detect_to_track_tpu_torch.diagnostics import checked_loss_fn
+    from detect_to_track_tpu_torch.inference import Detector
+    from detect_to_track_tpu_torch.ops import pooling
+    from detect_to_track_tpu_torch.utils import space_to_depth2
+
+    cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
+    total = {name: 0 for name in _counters()}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    # ---- HOST_S2D ----
+    # the stems agree to their last bits only, and at random weights the
+    # proposal filter's and the compaction's top-k boundaries hold
+    # near-ties (objectness near 0.5 at the seeded init, softmaxes
+    # saturated to within an ulp at the reference-keyed weights) that those
+    # bits reorder: detections are held slot for slot against JAX and the
+    # plain stem on the CPU (tests/test_torch_port_options.py); here the
+    # features are held, and the Detector's valid counts
+    pairs = slice_pairs(cfg)
+    x = torch.from_numpy(pairs[0]).cuda().float() / 255.0
+    z = torch.from_numpy(space_to_depth2(pairs[0])).cuda().float() / 255.0
+    rel = {}
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 3e-2)):
+        model = train_model(cfg.replace(COMPUTE_DTYPE=dtype))
+        with torch.no_grad():
+            fa, fb = model.backbone(x), model.backbone(z)
+        rel[dtype] = {k: ((fa[k].float() - fb[k].float()).abs().max() / fa[k].float().abs().max()).item() for k in fa}
+        log(f"[options] {dtype} backbone at {tuple(x.shape[1:3])}, pre-s2d stem vs plain stem: largest difference / "
+            f"largest magnitude {({k: float(f'{v:.3e}') for k, v in rel[dtype].items()})} (tol {tol})")
+        if any(not v <= tol for v in rel[dtype].values()):
+            raise AssertionError(f"the {dtype} pre-s2d stem disagrees with the plain stem")
+    plain, s2d = Detector(model, cfg), Detector(model, cfg.replace(HOST_S2D=True))
+    a = plain.detect_pairs(pairs)
+    _zero_counts()
+    b = s2d.detect_pairs(pairs)
+    confs0, _, boxes0, _, tracks = s2d(pairs[0, 0], pairs[0, 1])
+    torch.cuda.synchronize()
+    launches = _read_counts()
+    add(launches)
+    counts_a, counts_b = a.valid.sum(-1).tolist(), b.valid.sum(-1).tolist()
+    log(f"[options] HOST_S2D Detector (bf16): detect_pairs x{len(pairs)} and __call__, launches {launches}; valid "
+        f"per frame {counts_b}, the plain stem's {counts_a}; __call__ {len(boxes0)} frame-0 detections")
+    finite = all(bool(torch.isfinite(f).all()) for f in (b.confs, b.boxes, b.tracks))
+    if launches["corr_fwd"] != 6 or counts_a != counts_b or not finite or tracks.shape != (len(boxes0), 4):
+        raise AssertionError("the HOST_S2D Detector's launches, valid counts or outputs are wrong")
+    del plain, s2d
+
+    # ---- REMAT ----
+    model.train()  # the Detectors left it in eval mode
+    batch = train_batches(cfg, 1)[0]
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    init = _trainable_after_freeze(model, cfg)
+    results = {}
+    for remat in (False, True):
+        model.load_state_dict(state)
+        model.backbone.remat = remat
+        step = trainer.make_train_step(model, cfg, trainer.make_optimizer(cfg, model))
+        _zero_counts()
+        losses = step(batch).vector()
+        weights = _trainable(model)
+        ms = []
+        for _ in range(2):  # timed: the same batch again
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(batch)
+            torch.cuda.synchronize()
+            ms.append(round((time.perf_counter() - t) * 1e3, 1))
+        launches = _read_counts()
+        add(launches)
+        results[remat] = (losses, weights)
+        log(f"[options] REMAT {remat}: steps 2-3 {ms} ms, launches {launches} in 3 steps, first step's losses "
+            f"{losses.tolist()}")
+        if list(launches.values()) != [9, 6, 6]:
+            raise AssertionError(f"REMAT {remat} steps launched {launches}")
+    share, worst = _update_err(results[True][1], results[False][1], init)
+    log(f"[options] REMAT step vs plain step: losses equal {torch.equal(results[True][0], results[False][0])}, "
+        f"weights' largest difference {share:.3e} of the tensor's largest update ({worst}; tol 1e-2)")
+    if not torch.equal(results[True][0], results[False][0]) or not share <= 1e-2:
+        raise AssertionError("the REMAT step disagrees with the plain step")
+    grads = {}
+    for remat in (False, True):
+        model.load_state_dict(state)
+        model.backbone.remat = remat
+        model.zero_grad(set_to_none=True)
+        anchors, crosses = trainer._anchor_tensors(cfg, torch.device("cuda"))
+        trainer.forward_losses(model, batch, anchors, crosses, cfg).t.backward()
+        grads[remat] = {n: p.grad.clone() for n, p in model.backbone.named_parameters()
+                        if p.grad is not None and n.startswith(("layer3", "layer4"))}
+    g_err = max((grads[True][k].float() - g.float()).abs().max().item() / max(g.float().abs().max().item(), 1e-30)
+                for k, g in grads[False].items())
+    log(f"[options] track loss's gradients wrt {len(grads[False])} layer3 / layer4 weights, REMAT vs plain: "
+        f"largest difference {g_err:.3e} of the tensor's largest gradient (tol 1e-2)")
+    if len(grads[True]) != len(grads[False]) or not grads[False] or not g_err <= 1e-2:
+        raise AssertionError("the REMAT track-loss gradients disagree with the plain ones")
+    model.backbone.remat = False
+
+    # ---- checked_loss_fn ----
+    anchors, crosses = trainer._anchor_tensors(cfg, torch.device("cuda"))
+
+    def poisoned(b):
+        with torch.no_grad():
+            dtl = trainer.forward_losses(model, b, anchors, crosses, cfg)
+        dtl.c = dtl.c * float("nan")
+        return dtl
+
+    clean_err, _ = checked_loss_fn(lambda b: trainer.forward_losses(model, b, anchors, crosses, cfg))(batch)
+    err, _ = checked_loss_fn(poisoned)(batch)
+    log(f"[options] checked_loss_fn: clean batch {clean_err.get()!r}; the R-FCN class loss made NaN: {err.get()!r}")
+    if clean_err.get() is not None or err.get() != "loss component 'c' is non-finite":
+        raise AssertionError("checked_loss_fn did not name the poisoned component")
+    try:
+        err.throw()
+        raise AssertionError("checked_loss_fn's error did not raise")
+    except FloatingPointError:
+        pass
+    del model, state, results, grads
+    torch.cuda.empty_cache()
+
+    # ---- sat vs einsum at the R-FCN head's shapes ----
+    fh, fw = cfg.fm_shape
+    n_frames, k, n_t = 2 * cfg.BATCH_SIZE, cfg.K, cfg.N_CLASSES + 1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fm = torch.randn(n_frames, fh, fw, n_t * k * k, device="cuda", generator=gen)
+    ij = torch.rand(n_frames, cfg.MAX_ROIS, 2, device="cuda", generator=gen) * 0.8 + 0.1
+    hw = torch.rand(n_frames, cfg.MAX_ROIS, 2, device="cuda", generator=gen) * 0.5 + 0.02
+    rois = torch.cat([ij, hw], -1)
+    outs, gs = {}, {}
+    for impl in ("einsum", "sat"):
+        x = fm.clone().requires_grad_()
+        outs[impl] = pooling.ps_roi_pool(x, rois, n_t, k, impl=impl)
+        (outs[impl] ** 2).sum().backward()
+        gs[impl] = x.grad
+    ms = {impl: cuda_time_ms(lambda impl=impl: pooling.ps_roi_pool(fm, rois, n_t, k, impl=impl), iters=10)
+          for impl in ("einsum", "sat")}
+    o_err = (outs["sat"] - outs["einsum"]).abs().max().item() / outs["einsum"].abs().max().item()
+    g_err = (gs["sat"] - gs["einsum"]).abs().max().item() / gs["einsum"].abs().max().item()
+    log(f"[options] ps_roi_pool sat vs einsum at {n_frames} x {fh}x{fw} x {n_t * k * k} ch, {cfg.MAX_ROIS} rois, "
+        f"k {k}: forward {o_err:.3e}, gradient {g_err:.3e} of the largest magnitude (tol 1e-4); forward ms "
+        f"einsum {ms['einsum']:.3f}, sat {ms['sat']:.3f}; card: {smi}")
+    if not (o_err <= 1e-4 and g_err <= 1e-4):
+        raise AssertionError("sat pooling disagrees with einsum pooling")
+    return total
+
+
+def _trainable_after_freeze(model, cfg) -> dict:
+    """the weights a training step moves (the freeze applied), cloned."""
+    from detect_to_track_tpu_torch.models import set_trainable_stages
+
+    set_trainable_stages(model, cfg.FIRST_TRAINABLE_STAGE)
+    return _trainable(model)
+
+
 
 def train_track_grads(model, cfg, batch):
     """the track loss alone (COEFS weighs it 1e-4 in the step, so a wrong
@@ -1039,6 +1581,9 @@ def main() -> int:
     del det
     train_launches = phase_train(smi)
     trainer_launches = phase_trainer(smi)
+    ddp_launches = phase_ddp(smi)
+    options_launches = phase_options(smi)
+    extra = {k: ddp_launches[k] + options_launches[k] for k in ddp_launches}
     # per call or step at the working point (bf16, 38x75, d 8, stride 1):
     # K1 over the three scales' channels, the backward kernels over c4 and c5
     def at_working_point(r, channels):
@@ -1053,12 +1598,12 @@ def main() -> int:
     meta = {
         "corr_fwd": ("detect_to_track_tpu_torch/ops/csrc/corr_fwd.cu", "detect_to_track_tpu/ops/correlation.py:92",
                      slice_launches + clip_launches["corr_fwd"] + train_launches["corr_fwd"]
-                     + trainer_launches["corr_fwd"]),
+                     + trainer_launches["corr_fwd"] + extra["corr_fwd"]),
         "corr_bwd_fm0": ("detect_to_track_tpu_torch/ops/csrc/corr_bwd.cu", "detect_to_track_tpu/ops/correlation.py:187",
-                         train_launches["corr_bwd_fm0"] + trainer_launches["corr_bwd_fm0"]),
+                         train_launches["corr_bwd_fm0"] + trainer_launches["corr_bwd_fm0"] + extra["corr_bwd_fm0"]),
         # one kernel for both TPU dFM1 kernels: K3 (:378, H <= 40) and K4 (:267)
         "corr_bwd_fm1": ("detect_to_track_tpu_torch/ops/csrc/corr_bwd.cu", "detect_to_track_tpu/ops/correlation.py:378,267",
-                         train_launches["corr_bwd_fm1"] + trainer_launches["corr_bwd_fm1"]),
+                         train_launches["corr_bwd_fm1"] + trainer_launches["corr_bwd_fm1"] + extra["corr_bwd_fm1"]),
     }
     kernels = [{
         "name": name,
@@ -1095,4 +1640,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ddp_rank_main(Path(sys.argv[2])))
     sys.exit(main())

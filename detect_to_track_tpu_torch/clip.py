@@ -116,6 +116,8 @@ class ClipTracker:
             ]
         else:
             arrs = promote_mixed_image_dtypes(arrs)
+        # HOST_S2D: each frame packed 2x2 space-to-depth on the host
+        arrs = [det._maybe_s2d(a) for a in arrs]
         n = len(arrs)
         chunk = min(self.frame_chunk, n)
 

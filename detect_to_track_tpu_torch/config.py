@@ -81,16 +81,20 @@ class Config:
 
     # compute precision of the backbone and head convolutions and matmuls
     COMPUTE_DTYPE: str = "bfloat16"
-    # host-side 2x2 space-to-depth input with the 4x4/s1 stem (not ported
-    # yet: the port raises when it is set)
+    # the host packs frames 2x2 space-to-depth (utils.space_to_depth2) and
+    # the backbone runs the equivalent 4x4/s1 stem over 12 channels
     HOST_S2D: bool = False
     LOADER_WORKERS: int = 0
+    # recompute the trainable stages' bottlenecks in the backward
+    # (torch.utils.checkpoint): activation memory for FLOPs
     REMAT: bool = False
     GRAD_ACCUM: int = 1
     NAN_POLICY: str = "warn"
     HOST_RSS_LIMIT_GB: float = -1.0
 
-    # parallelism
+    # data parallelism (parallel/mesh.py): NUM_DEVICES is the world size
+    # (one process per card), NUM_HOSTS groups the ranks into hosts, and
+    # BATCH_SIZE is the batch per host
     NUM_DEVICES: int = 1
     MESH_AXES: Tuple[str, ...] = ("data",)
     NUM_HOSTS: int = 1

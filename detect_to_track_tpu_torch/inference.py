@@ -26,7 +26,14 @@ from .config import Config
 from .encoding import frcnn_box_decode
 from .models import DetectTrackModule
 from .ops.nms import _take_rows, _top_k, batched_proposal_filter
-from .utils import check_model_device, image_to_input, promote_mixed_image_dtypes, resolve_device, split_pairs
+from .utils import (
+    check_model_device,
+    image_to_input,
+    promote_mixed_image_dtypes,
+    resolve_device,
+    space_to_depth2,
+    split_pairs,
+)
 
 Device = Optional[Union[str, torch.device]]
 
@@ -95,7 +102,8 @@ def detect_pairs_batched(
 
     Args:
         images: (P, 2, H, W, 3) float32 in [0, 1] or uint8 in [0, 255]
-            (uint8 is divided by 255 on the device).
+            (uint8 is divided by 255 on the device), or (P, 2, H/2, W/2,
+            12) packed by `utils.space_to_depth2`.
         anchors: (|A|, 4).
         device: where it runs (cuda unless given); the model must be there.
 
@@ -107,7 +115,7 @@ def detect_pairs_batched(
     anchors = torch.as_tensor(anchors).to(dev)
     p, two, h, w, c = images.shape
     if two != 2:
-        raise ValueError(f"expected (P, 2, H, W, 3) frame pairs, got {tuple(images.shape)}")
+        raise ValueError(f"expected (P, 2, H, W, C) frame pairs, got {tuple(images.shape)}")
     x = images.reshape(p * 2, h, w, c)
 
     fmaps_t, fm_reg, confs, boxes, valid = _detect_frames(model, x, anchors, cfg)
@@ -177,13 +185,11 @@ class Detector:
 
     Accepts PIL images (resized to cfg.INPUT_SHAPE) or pre-sized (H, W, 3)
     arrays, uint8 or float in [0, 1]. Runs on `device`, cuda unless given.
+    Under HOST_S2D host frames are packed 2x2 space-to-depth before the
+    upload (the backbone's 12-channel stem takes them).
     """
 
     def __init__(self, model: DetectTrackModule, cfg: Config, device: Device = None) -> None:
-        if cfg.HOST_S2D:
-            raise NotImplementedError(
-                "HOST_S2D (the 12-channel space-to-depth stem) is not ported yet (ROADMAP.md)"
-            )
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.cfg = cfg
@@ -191,16 +197,30 @@ class Detector:
             np.array(build_anchors(cfg.fm_shape, cfg.ANCHOR_AREAS, cfg.ANCHOR_ASPECT_RATIOS))
         ).to(self.device)
 
+    def _maybe_s2d(self, x):
+        """HOST_S2D: a 3-channel host array is packed 2x2 space-to-depth
+        (`utils.space_to_depth2`); a 12-channel input passes. A 3-channel
+        tensor is rejected: the packing is a host copy, and a second,
+        plain-stem path would be a silent fallback."""
+        if not self.cfg.HOST_S2D or x.shape[-1] != 3:
+            return x
+        if not isinstance(x, np.ndarray):
+            raise ValueError(
+                "HOST_S2D is enabled but a 3-channel tensor was passed; pass host frames (numpy) "
+                "or apply utils.space_to_depth2 before the upload"
+            )
+        return space_to_depth2(x)
+
     def _pack_input(self, x):
         """a numpy array or tensor passes through; a list of arrays or
         tensors is stacked after mixed uint8/float entries are brought to
-        float32 / 255."""
+        float32 / 255. Either way HOST_S2D applies (`_maybe_s2d`)."""
         if isinstance(x, (list, tuple)):
             if all(isinstance(p, np.ndarray) for p in x):
-                return np.asarray(promote_mixed_image_dtypes(list(x)))
+                return self._maybe_s2d(np.asarray(promote_mixed_image_dtypes(list(x))))
             parts = [torch.as_tensor(p).to(self.device) for p in x]
-            return torch.stack(promote_mixed_image_dtypes(parts))
-        return x
+            return self._maybe_s2d(torch.stack(promote_mixed_image_dtypes(parts)))
+        return self._maybe_s2d(x)
 
     def detect_pairs(self, pairs) -> PairDetections:
         """batched raw API: pairs is (P, 2, H, W, 3); returns the padded
@@ -221,7 +241,7 @@ class Detector:
         return image_to_input(im, self.cfg.INPUT_SHAPE, as_uint8=True)
 
     def __call__(self, im0, im1) -> Tuple[np.ndarray, ...]:
-        x = np.stack(promote_mixed_image_dtypes([self._to_array(im0), self._to_array(im1)]))
+        x = self._maybe_s2d(np.stack(promote_mixed_image_dtypes([self._to_array(im0), self._to_array(im1)])))
         out = detect_pair(self.model, x, self.anchors, self.cfg, self.device)
         confs, boxes, valid, tracks = (f.cpu().numpy() for f in out)
         v0, v1 = valid[0], valid[1]

@@ -38,11 +38,14 @@ class DetectTrackModule(nn.Module):
         paper_channel_layout: bool = False,
         corr_impl: str = "auto",
         tracker_fused_head: bool = True,
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         self.dtype = dtype
-        self.backbone = ResNetBackbone(arch=backbone_arch, dtype=dtype, first_trainable_stage=first_trainable_stage)
+        self.backbone = ResNetBackbone(
+            arch=backbone_arch, dtype=dtype, first_trainable_stage=first_trainable_stage, remat=remat
+        )
         self.rpn = RPN(n_anchors, self.stage4_outchannels, self.rpn_channels, dtype=dtype)
         self.rcnn = RFCN(
             n_classes,
@@ -73,16 +76,9 @@ class DetectTrackModule(nn.Module):
         (lecun-normal kernels, zero biases, identity FrozenBatchNorm, as the
         JAX package initializes). Load trained weights with
         `load_state_dict` afterwards. The backbone's freeze boundary is
-        cfg.FIRST_TRAINABLE_STAGE."""
-        if cfg.HOST_S2D:
-            raise NotImplementedError(
-                "HOST_S2D (the 12-channel space-to-depth stem) is not ported yet (ROADMAP.md)"
-            )
-        if cfg.REMAT:
-            raise NotImplementedError(
-                "REMAT (rematerialized backbone blocks) is not ported yet: ROADMAP.md item 10, "
-                "with torch.utils.checkpoint"
-            )
+        cfg.FIRST_TRAINABLE_STAGE and its rematerialization cfg.REMAT; the
+        weights are the same under HOST_S2D (the backbone takes either
+        input layout)."""
         dev = resolve_device(device)
         with torch.device("meta"):
             model = cls(
@@ -94,6 +90,7 @@ class DetectTrackModule(nn.Module):
                 d_max=cfg.D_MAX,
                 r_hw=cfg.K,
                 paper_channel_layout=cfg.FIX_PSROI_CHANNEL_MAP,
+                remat=cfg.REMAT,
                 dtype=cfg.compute_dtype,
             )
         model = model.to_empty(device="cpu")

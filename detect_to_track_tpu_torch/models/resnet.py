@@ -13,6 +13,13 @@
   entering layer s is detached, and so is every pyramid level produced only
   by frozen stages (c3 at s = 3), as the JAX package's stop_gradient cuts
   do; `set_trainable_stages` clears requires_grad on the frozen weights.
+- a (B, H/2, W/2, 12) input is a frame already packed 2x2 space-to-depth
+  on the host (HOST_S2D, `utils.space_to_depth2`): the stem runs as the
+  equivalent 4x4/s1 convolution over 12 channels, from the same 7x7 weights
+  (zero-padded to 8x8 and regrouped), so the state_dict is unchanged.
+- remat: each bottleneck of the trainable stages runs under
+  `torch.utils.checkpoint` (its activations are recomputed in the backward),
+  as the JAX package wraps its blocks in `nn.remat`.
 
 Public layout is NHWC, as in the JAX package. Inside, the convolutions take
 `x.permute(0, 3, 1, 2)` of a contiguous NHWC tensor, which is already a
@@ -27,6 +34,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -113,15 +121,23 @@ class ResNetBackbone(nn.Module):
         dtype: compute dtype (parameters stay float32).
         first_trainable_stage: the freeze boundary (module docstring); 0
             cuts nothing.
+        remat: recompute the trainable stages' bottlenecks in the backward.
     """
 
-    def __init__(self, arch: str = "resnet50", dtype: torch.dtype = torch.float32, first_trainable_stage: int = 0):
+    def __init__(
+        self,
+        arch: str = "resnet50",
+        dtype: torch.dtype = torch.float32,
+        first_trainable_stage: int = 0,
+        remat: bool = False,
+    ):
         super().__init__()
         if arch not in ARCHS:
             raise ValueError(f"unknown arch {arch!r} (one of {sorted(ARCHS)})")
         self.arch = arch
         self.dtype = dtype
         self.first_trainable_stage = first_trainable_stage
+        self.remat = remat
         blocks, groups, base_width = ARCHS[arch]
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = FrozenBatchNorm(64)
@@ -149,25 +165,40 @@ class ResNetBackbone(nn.Module):
             prev_dilation = dilation
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: (B, H, W, 3) float in [0, 1] -> {'c3', 'c4', 'c5'} NHWC maps in
-        the compute dtype."""
-        if x.shape[-1] != 3:
-            raise NotImplementedError(
-                f"the backbone takes (B, H, W, 3) frames, got {tuple(x.shape)}: the "
-                "HOST_S2D 12-channel stem is not ported yet (ROADMAP.md)"
-            )
+        """x: (B, H, W, 3) float in [0, 1], or (B, H/2, W/2, 12) packed by
+        `utils.space_to_depth2` -> {'c3', 'c4', 'c5'} NHWC maps in the
+        compute dtype."""
+        pre_s2d = x.shape[-1] == 12
+        if not pre_s2d and x.shape[-1] != 3:
+            raise ValueError(f"the backbone takes (B, H, W, 3) or (B, H/2, W/2, 12) frames, got {tuple(x.shape)}")
         mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
         std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
+        if pre_s2d:
+            # RGB is the minor index of each (vi, vj) group of 3 channels
+            mean, std = mean.repeat(4), std.repeat(4)
         x = (x - mean) / std
         x = x.to(self.dtype).permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
+        if pre_s2d:
+            # y[p] = sum_{i<7} w[i] x[2p+i-3]: with w zero-padded to 8 taps at
+            # the leading edge, tap i' - 4 = 2u + v splits into a block offset
+            # u in {-2..1} and a phase v, so the stem is a 4x4/s1 conv with
+            # padding (2, 1) over the 12 (vi, vj, c) channels
+            x = F.conv2d(F.pad(x, (2, 1, 2, 1)), s2d_stem_weight(self.conv1.weight).to(x.dtype))
+        else:
+            x = self.conv1(x)
+        x = F.relu(self.bn1(x))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = {}
         fts = self.first_trainable_stage
         for li in range(1, 5):
             if li == fts:
                 x = x.detach()  # nothing below the boundary gets a gradient
-            x = getattr(self, f"layer{li}")(x)
+            layer = getattr(self, f"layer{li}")
+            if self.remat and li >= fts and torch.is_grad_enabled():
+                for block in layer:
+                    x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = layer(x)
             if li >= 2:
                 out = x.permute(0, 2, 3, 1)
                 if li < fts:
@@ -176,6 +207,16 @@ class ResNetBackbone(nn.Module):
                     out = out.detach()
                 feats[f"c{li + 1}"] = out
         return feats
+
+
+def s2d_stem_weight(w: torch.Tensor) -> torch.Tensor:
+    """the 7x7/s2 stem kernel (64, 3, 7, 7) as the 4x4/s1 kernel (64, 12, 4, 4)
+    over space-to-depth input: zero-padded to 8x8 at the leading edge, each
+    tap i' = 2u + v regrouped into the block tap u and the input channel
+    v_i * 6 + v_j * 3 + c."""
+    o = w.shape[0]
+    w8 = F.pad(w, (1, 0, 1, 0)).reshape(o, 3, 4, 2, 4, 2)  # (o, c, ui, vi, uj, vj)
+    return w8.permute(0, 3, 5, 1, 2, 4).reshape(o, 12, 4, 4)
 
 
 def set_trainable_stages(model: nn.Module, first_trainable_stage: int) -> List[nn.Parameter]:

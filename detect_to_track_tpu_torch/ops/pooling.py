@@ -1,33 +1,46 @@
-"""ROI pooling as separable mask contractions (port of the JAX package's
-`ops/pooling.py`, `impl="einsum"`).
+"""ROI pooling (port of the JAX package's `ops/pooling.py`), in two forms.
 
 A bin average is a separable mask contraction
 
     out[r, i, j, c] = rmask[r, i, :] @ FM[:, :, c] @ cmask[r, j, :]^T / n
 
-run as two batched matmuls, with no gathers or scatters; the backward is
-more matmuls through autograd. Bin geometry and quirks follow torch_ref.
-Every function takes one frame (fm (H, W, C), rois (R, 4)) or a batch of
-frames (fm (B, H, W, C), rois (B, R, 4)).
-
-The summed-area-table form (`impl="sat"`) is not ported yet (ROADMAP.md).
+run as two batched matmuls (`impl="einsum"`, the default), with no gathers
+or scatters; the backward is more matmuls through autograd. `impl="sat"`
+sums each bin from four corners of a summed-area table (gathers, and a
+scatter in the backward): O(1) per bin whatever the roi's size. Bin
+geometry and quirks follow torch_ref in both forms. Every function takes
+one frame (fm (H, W, C), rois (R, 4)) or a batch of frames (fm (B, H, W,
+C), rois (B, R, 4)).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .torch_ref import _bin_bounds, _float_type, _range_masks, ps_roi_pool_channel_map
 
 
 def _check_impl(impl: str) -> None:
-    if impl == "sat":
-        raise NotImplementedError(
-            "the summed-area-table pooling (impl='sat') is not ported yet "
-            "(ROADMAP.md, port of ops/pooling.py); use impl='einsum'"
-        )
-    if impl != "einsum":
+    if impl not in ("einsum", "sat"):
         raise ValueError(f"unknown impl {impl!r} (use 'einsum' or 'sat')")
+
+
+def _sat(fm: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H+1, W+1, C) inclusive summed-area table in f32
+    (or wider) with a zero top row and left column."""
+    s = fm.to(_float_type(fm.dtype)).cumsum(1).cumsum(2)
+    return F.pad(s, (0, 0, 1, 0, 1, 0))
+
+
+def _sat_bounds(rois: torch.Tensor, r_hw: int, fm_h: int, fm_w: int, clamp_corner: bool):
+    """rois (B, R, 4) -> i0, i1, j0, j1 as (B, R, k) int64 and the bins'
+    pixel counts (B, R, k, k)."""
+    b, r = rois.shape[:2]
+    bounds = _bin_bounds(rois.reshape(b * r, 4), r_hw, fm_h, fm_w, clamp_corner)
+    i0, i1, j0, j1 = (t.long().reshape(b, r, r_hw) for t in bounds)
+    numel = ((i1 - i0)[..., :, None] * (j1 - j0)[..., None, :]).to(torch.float32)
+    return i0, i1, j0, j1, numel
 
 
 def _batched(fm: torch.Tensor, rois: torch.Tensor, frame_ndim: int):
@@ -61,6 +74,9 @@ def roi_pool(fm: torch.Tensor, rois: torch.Tensor, r_hw: int, impl: str = "einsu
     """
     _check_impl(impl)
     fm, rois, squeeze = _batched(fm, rois, 3)
+    if impl == "sat":
+        out = _roi_pool_sat(fm, rois, r_hw)
+        return out[0] if squeeze else out
     _, fm_h, fm_w, _ = fm.shape
     f = fm.to(_float_type(fm.dtype))
     rmask, cmask, numel = _masks(rois, r_hw, fm_h, fm_w, True, f.dtype)
@@ -69,6 +85,19 @@ def roi_pool(fm: torch.Tensor, rois: torch.Tensor, r_hw: int, impl: str = "einsu
     sums = torch.einsum("brih,brjhc->brijc", rmask, p1)
     out = _average(sums, numel[..., None])
     return out[0] if squeeze else out
+
+
+def _roi_pool_sat(fm: torch.Tensor, rois: torch.Tensor, r_hw: int) -> torch.Tensor:
+    b, fm_h, fm_w, c = fm.shape
+    i0, i1, j0, j1, numel = _sat_bounds(rois, r_hw, fm_h, fm_w, True)
+    s = _sat(fm).reshape(b, (fm_h + 1) * (fm_w + 1), c)
+    bi = torch.arange(b, device=fm.device)[:, None, None, None]
+
+    def corner(i, j):  # (B, R, k), (B, R, k) -> (B, R, k, k, C)
+        return s[bi, i[..., :, None] * (fm_w + 1) + j[..., None, :]]
+
+    sums = corner(i1, j1) - corner(i0, j1) - corner(i1, j0) + corner(i0, j0)
+    return _average(sums, numel[..., None])
 
 
 def roi_pool_linear(g: torch.Tensor, rois: torch.Tensor, r_hw: int) -> torch.Tensor:
@@ -113,6 +142,9 @@ def ps_roi_pool(
         )
     _check_impl(impl)
     fm, rois, squeeze = _batched(fm, rois, 3)
+    if impl == "sat":
+        out = _ps_roi_pool_sat(fm, rois, n_targets, r_hw, paper_layout)
+        return out[0] if squeeze else out
     _, fm_h, fm_w, _ = fm.shape
     f = fm.to(_float_type(fm.dtype))
     rmask, cmask, numel = _masks(rois, r_hw, fm_h, fm_w, False, f.dtype)
@@ -122,3 +154,19 @@ def ps_roi_pool(
     sums = torch.einsum("brih,brhtij->brtij", rmask, p1)
     out = _average(sums, numel[:, :, None])
     return out[0] if squeeze else out
+
+
+def _ps_roi_pool_sat(fm, rois, n_targets: int, r_hw: int, paper_layout: bool) -> torch.Tensor:
+    b, fm_h, fm_w, c = fm.shape
+    i0, i1, j0, j1, numel = _sat_bounds(rois, r_hw, fm_h, fm_w, False)
+    s = _sat(fm).reshape(b, -1)  # (B, (H+1) * (W+1) * C)
+    ch = ps_roi_pool_channel_map(n_targets, r_hw, paper_layout, fm.device)  # (T, k, k)
+    bi = torch.arange(b, device=fm.device)[:, None, None, None, None]
+
+    def corner(i, j):  # output element (b, r, t, i, j) reads row i, column j, channel ch[t, i, j]
+        rows = i[:, :, None, :, None]
+        cols = j[:, :, None, None, :]
+        return s[bi, (rows * (fm_w + 1) + cols) * c + ch]
+
+    sums = corner(i1, j1) - corner(i0, j1) - corner(i1, j0) + corner(i0, j0)  # (B, R, T, k, k)
+    return _average(sums, numel[:, :, None])

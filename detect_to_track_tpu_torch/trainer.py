@@ -27,13 +27,17 @@ Each stage runs inside a `torch.profiler.record_function` range named
 `DetectTrackTrainer` runs the reference's loop (train an epoch, validate,
 report, early-stop) with the JAX trainer's checkpoints, resume, NaN policy,
 host-memory watchdog and JSONL log; `python -m
-detect_to_track_tpu_torch.train` drives it. It is one process on one
-device: the multi-process and multi-device parts of the JAX trainer are
-ROADMAP.md item 10.
+detect_to_track_tpu_torch.train` drives it. With NUM_DEVICES > 1 it is one
+rank of a torch.distributed group (parallel/mesh.py): the step runs under
+DistributedDataParallel on the rank's rows of the host batch, the losses
+are means over the ranks, rank 0 alone logs, reports and writes the
+checkpoints, and the watchdog's decision is all-reduced.
 """
 
 from __future__ import annotations
 
+import contextlib
+import inspect
 import json
 import os
 import shutil
@@ -52,7 +56,15 @@ from .encoding import anchor_encode, frcnn_box_decode, region_encode, track_enco
 from .losses import DTLoss, rcnn_loss, rpn_loss, track_loss
 from .models import DetectTrackModule, set_trainable_stages
 from .ops.nms import batched_proposal_filter
-from .utils import check_model_device, image_to_input, promote_mixed_image_dtypes, resolve_device, split_pairs
+from .parallel.mesh import Mesh, any_over_ranks, barrier_sync, make_mesh, mean_over_ranks
+from .utils import (
+    check_model_device,
+    image_to_input,
+    promote_mixed_image_dtypes,
+    resolve_device,
+    space_to_depth2,
+    split_pairs,
+)
 
 
 def _model_device(model: torch.nn.Module) -> torch.device:
@@ -85,8 +97,9 @@ def forward_losses(
     """the joint loss of a batch of frame pairs, on the model's device.
 
     batch.images: (B, 2, H, W, 3) uint8 (divided by 255 on the device) or
-    float in [0, 1]; batch.labels.*: (B, 2, L, ...). Returns batch-mean
-    components with count 1 (DTLoss.single).
+    float in [0, 1], or (B, 2, H/2, W/2, 12) under HOST_S2D;
+    batch.labels.*: (B, 2, L, ...). Returns batch-mean components with
+    count 1 (DTLoss.single).
     """
     dev = _model_device(model)
     batch = batch_to_device(batch, dev)
@@ -94,7 +107,7 @@ def forward_losses(
     imgs = batch.images
     b, two, h, w, c = imgs.shape
     if two != 2:
-        raise ValueError(f"expected (B, 2, H, W, 3) frame pairs, got {tuple(imgs.shape)}")
+        raise ValueError(f"expected (B, 2, H, W, C) frame pairs, got {tuple(imgs.shape)}")
     flat = lambda a: a.reshape((b * 2,) + tuple(a.shape[2:]))  # noqa: E731 -- frame f of pair p at 2p+f
     boxes_f, classes_f, mask_f = flat(lbl.boxes), flat(lbl.classes), flat(lbl.mask)
 
@@ -173,12 +186,46 @@ def _chunk(batch: PaddedPairBatch, i: int, n: int) -> PaddedPairBatch:
     return PaddedPairBatch(images=batch.images[sl], labels=PaddedFrame(*(a[sl] for a in batch.labels)))
 
 
+class _JointLoss(torch.nn.Module):
+    """the joint loss as a module, so that DistributedDataParallel's forward
+    runs around it: DDP arms its gradient all-reduce in its own forward."""
+
+    def __init__(self, model: DetectTrackModule, anchors, crosses, cfg: Config) -> None:
+        super().__init__()
+        self.model = model
+        self.anchors, self.crosses, self.cfg = anchors, crosses, cfg
+
+    def forward(self, batch: PaddedPairBatch) -> DTLoss:
+        return forward_losses(self.model, batch, self.anchors, self.crosses, self.cfg)
+
+
+def _ddp(module: torch.nn.Module) -> torch.nn.parallel.DistributedDataParallel:
+    """DDP without per-forward buffer broadcasts: the FrozenBN affines are
+    constants. The argument's name is chosen by the constructor's signature
+    (newer torch names it forward_sync_buffers, older broadcast_buffers)."""
+    ddp = torch.nn.parallel.DistributedDataParallel
+    params = inspect.signature(ddp.__init__).parameters
+    return ddp(module, **{"forward_sync_buffers" if "forward_sync_buffers" in params else "broadcast_buffers": False})
+
+
+def _with_vector(dtl: DTLoss, vec: torch.Tensor) -> DTLoss:
+    return DTLoss(*vec.unbind(), count=dtl.count)
+
+
 class TrainStep:
     """one joint training step: `step(batch) -> DTLoss` (detached
     components). The model's parameters and the optimizer's momentum are
-    updated in place; `steps` counts the updates taken."""
+    updated in place; `steps` counts the updates taken.
 
-    def __init__(self, model: DetectTrackModule, cfg: Config, optimizer: torch.optim.Optimizer) -> None:
+    With a `mesh` whose process group is up, `batch` is this rank's rows,
+    the loss runs under DistributedDataParallel (the backward all-reduces
+    the gradients; GRAD_ACCUM's microbatches but the last run under
+    no_sync) and the returned losses are the means over the ranks, so every
+    rank takes the same NAN_POLICY decision."""
+
+    def __init__(
+        self, model: DetectTrackModule, cfg: Config, optimizer: torch.optim.Optimizer, mesh: Optional[Mesh] = None
+    ) -> None:
         self.model = model
         self.cfg = cfg
         self.optimizer = optimizer
@@ -187,14 +234,24 @@ class TrainStep:
         dev = _model_device(model)
         self.anchors, self.crosses = _anchor_tensors(cfg, dev)
         self.coefs = torch.tensor(cfg.COEFS, dtype=torch.float32, device=dev)
+        self.mesh = mesh if mesh is not None and mesh.collective else None
+        self._loss = _JointLoss(model, self.anchors, self.crosses, cfg)
+        if self.mesh is not None:
+            self._loss = _ddp(self._loss)
+        self._grads_checked = self.mesh is None
 
-    def _losses(self, batch: PaddedPairBatch) -> DTLoss:
-        return forward_losses(self.model, batch, self.anchors, self.crosses, self.cfg)
+    def _check_grads(self) -> None:
+        """DDP waits for the gradient of every trainable parameter: name any
+        that the first step left without one."""
+        unused = [n for n, p in self.model.named_parameters() if p.requires_grad and p.grad is None]
+        if unused:
+            raise RuntimeError(f"trainable parameters with no gradient in a step (DDP would wait for them): {unused}")
+        self._grads_checked = True
 
     def __call__(self, batch: PaddedPairBatch) -> DTLoss:
         self.optimizer.zero_grad(set_to_none=True)
         if self.accum == 1:
-            dtl = self._losses(batch)
+            dtl = self._loss(batch)
             with record_function("d2t::backward"):
                 dtl.to_scalar(self.coefs).backward()
             dtl = dtl.detach()
@@ -205,14 +262,21 @@ class TrainStep:
             # only one microbatch's activations are live at a time. Each
             # microbatch's unnormalised numerator (coefs . losses) goes
             # backward divided by the count, so the summed gradients are the
-            # unsplit step's.
+            # unsplit step's. Under DDP the gradients are all-reduced once,
+            # in the last microbatch's backward.
             total = DTLoss()
             for i in range(self.accum):
-                dtl = self._losses(_chunk(batch, i, b // self.accum))
-                with record_function("d2t::backward"):
-                    ((self.coefs * dtl.vector()).sum() / self.accum).backward()
+                last = i == self.accum - 1
+                with self._loss.no_sync() if self.mesh is not None and not last else contextlib.nullcontext():
+                    dtl = self._loss(_chunk(batch, i, b // self.accum))
+                    with record_function("d2t::backward"):
+                        ((self.coefs * dtl.vector()).sum() / self.accum).backward()
                 total = total + dtl.detach()
             dtl = total._map(lambda v: v / self.accum)
+        if not self._grads_checked:
+            self._check_grads()
+        if self.mesh is not None:
+            dtl = _with_vector(dtl, mean_over_ranks(dtl.vector(), self.mesh))
         if self.cfg.NAN_POLICY == "skip" and not bool(torch.isfinite(dtl.vector()).all()):
             # the update, the momentum and the counter stay as they were
             self.optimizer.zero_grad(set_to_none=True)
@@ -228,22 +292,31 @@ def make_train_step(
     cfg: Config,
     optimizer: torch.optim.Optimizer,
     device: Optional[torch.device] = None,
+    mesh: Optional[Mesh] = None,
 ) -> TrainStep:
     """the joint training step for `model` on `device` (cuda unless given;
-    the model must lie there)."""
+    the model must lie there). A mesh with a process group makes it the
+    data-parallel step (TrainStep)."""
     check_model_device(model, resolve_device(device))
-    return TrainStep(model, cfg, optimizer)
+    return TrainStep(model, cfg, optimizer, mesh)
 
 
-def make_eval_step(model: DetectTrackModule, cfg: Config, device: Optional[torch.device] = None):
-    """`step(batch) -> DTLoss`: the joint loss without gradients."""
+def make_eval_step(
+    model: DetectTrackModule, cfg: Config, device: Optional[torch.device] = None, mesh: Optional[Mesh] = None
+):
+    """`step(batch) -> DTLoss`: the joint loss without gradients; with a
+    mesh whose process group is up, the mean over the ranks of their rows'
+    losses."""
     dev = resolve_device(device)
     check_model_device(model, dev)
     anchors, crosses = _anchor_tensors(cfg, dev)
 
     @torch.no_grad()
     def step(batch: PaddedPairBatch) -> DTLoss:
-        return forward_losses(model, batch, anchors, crosses, cfg)
+        dtl = forward_losses(model, batch, anchors, crosses, cfg)
+        if mesh is not None and mesh.collective:
+            dtl = _with_vector(dtl, mean_over_ranks(dtl.vector(), mesh))
+        return dtl
 
     return step
 
@@ -252,13 +325,30 @@ class BatchLoader:
     """shuffled fixed-shape batches of frame pairs from a DataManager,
     packed into PaddedPairBatch numpy arrays (drop_last). PIL sources pack
     as uint8 (divided by 255 on the device); uint8 arrays stay uint8;
-    float arrays are taken as [0, 1]. Each epoch's order derives from
+    float arrays are taken as [0, 1]; HOST_S2D packs each pair 2x2
+    space-to-depth, (2, H/2, W/2, 12). Each epoch's order derives from
     (seed, epoch). cfg.LOADER_WORKERS: 0 = min(batch, cpus) decode threads,
-    1 = serial, N = N threads."""
+    1 = serial, N = N threads.
 
-    def __init__(self, manager: DataManager, batch_size: int, cfg: Config, seed: int = 0, shuffle: bool = True) -> None:
-        if cfg.HOST_S2D:
-            raise NotImplementedError("HOST_S2D (the 12-channel space-to-depth stem) is not ported yet (ROADMAP.md)")
+    shard = (index, count): the loader yields rows [index * n, (index + 1) *
+    n) of each batch of batch_size, n = batch_size / count (a rank's rows of
+    its host's batch). Every shard samples the whole batch, in order, so a
+    manager that draws from its own rng gives every shard the same batch;
+    only its own rows are decoded."""
+
+    def __init__(
+        self,
+        manager: DataManager,
+        batch_size: int,
+        cfg: Config,
+        seed: int = 0,
+        shuffle: bool = True,
+        shard: Tuple[int, int] = (0, 1),
+    ) -> None:
+        index, count = shard
+        if batch_size % count or not 0 <= index < count:
+            raise ValueError(f"shard {shard} of a batch of {batch_size}: BATCH_SIZE must divide over the host's ranks")
+        self.rows = slice(index * batch_size // count, (index + 1) * batch_size // count)
         self.manager = manager
         self.batch_size = batch_size
         self.cfg = cfg
@@ -296,7 +386,10 @@ class BatchLoader:
                 ims.append(image_to_input(inst.im, self.cfg.INPUT_SHAPE, as_uint8=True))
             dropped += max(0, len(inst.labels) - self.cfg.MAX_LABELS)
             frames.append(pack_labels(inst.labels, self.cfg.MAX_LABELS))
-        return np.stack(promote_mixed_image_dtypes(ims)), tuple(frames), dropped
+        ims = np.stack(promote_mixed_image_dtypes(ims))
+        if self.cfg.HOST_S2D:
+            ims = space_to_depth2(ims)
+        return ims, tuple(frames), dropped
 
     def __iter__(self) -> Iterator[PaddedPairBatch]:
         n = len(self.manager)
@@ -306,9 +399,10 @@ class BatchLoader:
         bs = self.batch_size
         pool = self._decode_pool()
         for s in range(0, n - bs + 1, bs):
-            # sampling stays serial (a manager may draw from its own rng);
-            # the decode and resize fan out over the pool
-            pairs = [self.manager[int(idx)] for idx in order[s : s + bs]]
+            # sampling stays serial (a manager may draw from its own rng)
+            # and covers the whole batch; the decode and resize of this
+            # shard's rows fan out over the pool
+            pairs = [self.manager[int(idx)] for idx in order[s : s + bs]][self.rows]
             packed = list(pool.map(self._pack_pair, pairs)) if pool is not None else [self._pack_pair(p) for p in pairs]
             for _, _, dropped in packed:
                 if dropped and self.dropped_labels == 0:
@@ -410,6 +504,16 @@ class DetectTrackTrainer:
     trainer.py:45-367) with checkpoints and resume, on one device (cuda
     unless `device` is given; the model must lie there).
 
+    NUM_DEVICES > 1: this process is one rank of a process group whose
+    world size is NUM_DEVICES (else construction raises), on its own device.
+    The rank trains and validates on its rows of its host's batch
+    (BATCH_SIZE pairs per host, split over the host's ranks in order), the
+    host's training order is salted per host (the loader seed and the
+    sampler's reseed), and the losses are means over the ranks, so every
+    rank holds the same loss history, early-stopping state and weights.
+    Rank 0 alone logs, reports and writes checkpoints; every rank meets the
+    others at a barrier after each write and restores on its own device.
+
     A checkpoint is one `torch.save` file: the model's state_dict, the SGD
     momentum (the optimizer's state_dict) and the step counter, beside a
     `<path>.meta.json` sidecar with the loop's host state. The default
@@ -427,19 +531,28 @@ class DetectTrackTrainer:
         logger: Optional[Callable[[Dict], None]] = None,
         device: Optional[torch.device] = None,
     ) -> None:
-        if cfg.NUM_DEVICES > 1 or cfg.NUM_HOSTS > 1:
-            raise NotImplementedError(
-                f"NUM_DEVICES={cfg.NUM_DEVICES}, NUM_HOSTS={cfg.NUM_HOSTS}: data-parallel and multi-process "
-                "training (the mesh, collectives, barrier_sync) are not ported yet: ROADMAP.md item 10"
-            )
+        # raises unless the world size is NUM_DEVICES (a process with no
+        # group is a world of one): NUM_DEVICES 1 under a launcher would
+        # train world-size divergent models racing for OUTPUT_DIR
+        self.mesh = make_mesh(cfg.NUM_DEVICES, cfg.NUM_HOSTS)
         self.device = resolve_device(device)
         self.model = model
         self.cfg = cfg
         self.optimizer = make_optimizer(cfg, model)
-        self._train_step = make_train_step(model, cfg, self.optimizer, self.device)
-        self._eval_step = make_eval_step(model, cfg, self.device)
-        self.trn_loader = BatchLoader(trn_manager, cfg.BATCH_SIZE, cfg, seed=0)
-        self.val_loader = BatchLoader(val_manager, cfg.BATCH_SIZE, cfg, seed=1, shuffle=False)
+        # DDP only above one rank: a world of one keeps the plain step
+        step_mesh = self.mesh if self.mesh.world_size > 1 else None
+        self._train_step = make_train_step(model, cfg, self.optimizer, self.device, step_mesh)
+        self._eval_step = make_eval_step(model, cfg, self.device, step_mesh)
+        shard = (self.mesh.local_index, self.mesh.per_host)
+        # the host's training order: the loader's shuffle seed (the stride
+        # keeps every host clear of the val loader's seed 1) and, for a
+        # seeded sampler, a per-host reseed; the ranks of one host share both
+        self.trn_loader = BatchLoader(trn_manager, cfg.BATCH_SIZE, cfg, seed=1_000_003 * self.mesh.host, shard=shard)
+        if self.mesh.n_hosts > 1:
+            reseed = getattr(trn_manager, "reseed", None)
+            if callable(reseed):
+                reseed(self._proc_salt(0))
+        self.val_loader = BatchLoader(val_manager, cfg.BATCH_SIZE, cfg, seed=1, shuffle=False, shard=shard)
         if len(self.trn_loader) == 0:
             # a zero-batch train loader would "train" nothing while still
             # burning PATIENCE full validation epochs
@@ -470,6 +583,7 @@ class DetectTrackTrainer:
         self._profiled = False
         self._rss_limit_cache: Optional[Tuple[float, float]] = None  # (cfg value, GB)
         self._rss_watchdog_disarmed = False
+        self._collectives_warm = False
         # host-RSS watchdog hook: called (after an autosave) when the process
         # exceeds cfg.HOST_RSS_LIMIT_GB; the train entry point installs an
         # exec-restart, None warns once and disarms
@@ -480,16 +594,17 @@ class DetectTrackTrainer:
         """optimizer updates taken (a skipped non-finite step is not one)."""
         return self._train_step.steps
 
-    @staticmethod
-    def _proc_salt(step: int) -> int:
-        """the sampler salt of a resume at `step`: the step itself in one
-        process (the JAX trainer's identity there; per-process salts are
-        ROADMAP.md item 10)."""
-        return step
+    def _proc_salt(self, step: int) -> int:
+        """the sampler salt at `step`: the step itself with one host, else
+        distinct per (host, step), so seeded samplers on different hosts
+        never replay each other's draws; the ranks of one host share it."""
+        return step * self.mesh.n_hosts + self.mesh.host
 
     def _default_logger(self, metrics: Dict) -> None:
         """wandb when a run is active, else one JSON line per call in
-        OUTPUT_DIR/metrics.jsonl."""
+        OUTPUT_DIR/metrics.jsonl; rank 0 only (one stream per run)."""
+        if self.mesh.rank != 0:
+            return
         wandb = _active_wandb()
         if wandb is not None:
             wandb.log(metrics)
@@ -514,8 +629,19 @@ class DetectTrackTrainer:
         acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.device.type == "cuda" else [])
         return profile(activities=acts)
 
+    def _warm_collectives(self) -> None:
+        """before the first collective of the run (a step, in train or in a
+        resumed validate): a barrier, so that no rank starts its first
+        all-reduce while another is still building (JAX's
+        `_warm_collectives`, which compiles first; here nothing compiles
+        ahead, so only the barrier is left)."""
+        if not self._collectives_warm:
+            barrier_sync("d2t_first_collective")
+            self._collectives_warm = True
+
     def train(self) -> DTLoss:
         trn_loss = DTLoss()
+        self._warm_collectives()
         prof = self._profile()
         if prof is not None:
             prof.__enter__()
@@ -577,6 +703,7 @@ class DetectTrackTrainer:
         # autosave's sidecar (val_pending), so a restarted process resumes
         # into this validation instead of skipping the epoch's val loss.
         self._in_validate = True
+        self._warm_collectives()
         try:
             for batch in prefetch(iter(self.val_loader)):
                 val_loss = val_loss + _host_loss(self._eval_step(batch))
@@ -590,7 +717,8 @@ class DetectTrackTrainer:
         trainer.py:324-340): the Detector on each report pair, boxes and
         the top-3 class confidences drawn, both frames side by side, saved
         under OUTPUT_DIR/report."""
-        if self.rep_manager is None:
+        if self.rep_manager is None or self.mesh.rank != 0:
+            # rank 0 alone reports, on the unwrapped model: no collective
             return {}
         from PIL import Image
 
@@ -636,9 +764,15 @@ class DetectTrackTrainer:
         the step counter with torch.save (written to a temporary file, then
         renamed), and the loop's host state in `<path>.meta.json`. The
         default path keeps a rotating history of the last CHECKPOINT_KEEP
-        saves beside the latest-best `ckpt`."""
+        saves beside the latest-best `ckpt`. Rank 0 alone writes; every
+        rank then waits at a barrier until the files are there."""
         default = path is None
         path = Path(path or self.output_dir / "ckpt").absolute()
+        if self.mesh.rank == 0:
+            self._write_checkpoint(path, default)
+        barrier_sync("d2t_checkpoint")
+
+    def _write_checkpoint(self, path: Path, default: bool) -> None:
         tmp = path.with_name(path.name + ".tmp")
         torch.save(
             {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "step": self.step_count},
@@ -780,13 +914,22 @@ class DetectTrackTrainer:
         if self._rss_watchdog_disarmed:
             return
         limit = self._host_rss_limit_gb()
-        if limit == float("inf"):
+        # with several ranks every rank joins the all-reduce of the "over"
+        # flag on every call unless the config disables the watchdog: a
+        # rank whose /proc read failed (limit inf) still takes part
+        collective = self.mesh.world_size > 1 and self.cfg.HOST_RSS_LIMIT_GB != 0
+        if limit == float("inf") and not collective:
             return
         rss_gb = self._host_rss_gb()
-        if not rss_gb > limit:
+        over = rss_gb > limit
+        if collective:
+            # if any rank is over, all autosave together and all run the
+            # handler (the checkpoint's barrier needs every rank)
+            over = any_over_ranks(over, self.mesh, self.device)
+        if not over:
             return
         print(
-            f"WARNING: host RSS {rss_gb:.1f} GB exceeds HOST_RSS_LIMIT_GB={limit:.1f}; "
+            f"WARNING: host RSS {rss_gb:.1f} GB exceeds HOST_RSS_LIMIT_GB={limit:.1f} (on this or another rank); "
             f"autosaving at step {self.step_count}"
         )
         self.checkpoint(self.output_dir / "ckpt_autosave")
@@ -822,6 +965,6 @@ class DetectTrackTrainer:
         # a clean end drops the watchdog's autosave, so it cannot shadow a
         # later run's checkpoints in a reused OUTPUT_DIR
         auto = self.output_dir / "ckpt_autosave"
-        if auto.exists():
+        if self.mesh.rank == 0 and auto.exists():
             auto.unlink()
             Path(f"{auto}.meta.json").unlink(missing_ok=True)

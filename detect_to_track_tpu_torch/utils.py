@@ -1,4 +1,5 @@
-"""small helpers: device choice, frame-pair split, image ingestion."""
+"""small helpers: device choice, frame-pair split, image ingestion, the
+host-side space-to-depth of HOST_S2D."""
 
 from __future__ import annotations
 
@@ -67,3 +68,16 @@ def promote_mixed_image_dtypes(arrays):
                 a.astype(np.float32) / np.float32(255.0) if a.dtype == np.uint8 else a.astype(np.float32)
             )
     return out
+
+
+def space_to_depth2(x) -> np.ndarray:
+    """host-side 2x2 space-to-depth (a numpy copy): (..., H, W, 3) ->
+    (..., H/2, W/2, 12) with z[..., a, b, vi*6 + vj*3 + c] =
+    x[..., 2a+vi, 2b+vj, c], the layout the backbone's pre-s2d stem takes
+    (HOST_S2D). The dtype is kept: uint8 frames stay uint8."""
+    *lead, h, w, c = x.shape
+    if h % 2 or w % 2 or c != 3:
+        raise ValueError(f"space_to_depth2 needs even HxW and C=3, got {x.shape}")
+    z = np.asarray(x).reshape(*lead, h // 2, 2, w // 2, 2, c)
+    z = np.moveaxis(z, -4, -3)  # (..., h/2, w/2, 2, 2, c)
+    return np.ascontiguousarray(z).reshape(*lead, h // 2, w // 2, 4 * c)

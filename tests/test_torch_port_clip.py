@@ -135,6 +135,9 @@ class _JaxDetections:
     def _to_array(self, im):
         return self.jdet._to_array(im)
 
+    def _maybe_s2d(self, x):
+        return self.jdet._maybe_s2d(x)
+
     def detect_clip(self, window):
         out = self.jdet.detect_clip(window.numpy())
         return ClipDetections(*(torch.from_numpy(np.array(f)) for f in out))

@@ -141,8 +141,12 @@ def test_detector_needs_cuda_unless_told(detectors):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Detector(det.model, cfg)
-    with pytest.raises(NotImplementedError, match="HOST_S2D"):
-        Detector(det.model, cfg.replace(HOST_S2D=True), device="cpu")
+    # HOST_S2D runs (tests/test_torch_port_options.py); a 3-channel tensor
+    # cannot be packed on the host and is refused
+    with pytest.raises(ValueError, match="3-channel tensor"):
+        Detector(det.model, cfg.replace(HOST_S2D=True), device="cpu").detect_pairs(
+            torch.zeros(1, 2, *cfg.INPUT_SHAPE, 3, dtype=torch.uint8)
+        )
 
 
 def _port_modules():

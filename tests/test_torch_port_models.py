@@ -240,8 +240,11 @@ def test_from_config_full_width_and_devices():
     assert port.dtype is torch.bfloat16
     again = DetectTrackModule.from_config(cfg, device="cpu", seed=1)
     torch.testing.assert_close(again.rpn.conv.weight, port.rpn.conv.weight, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="HOST_S2D"):
-        DetectTrackModule.from_config(cfg.replace(HOST_S2D=True), device="cpu")
+    # HOST_S2D takes the same weights (the backbone regroups the stem)
+    s2d = DetectTrackModule.from_config(cfg.replace(HOST_S2D=True), device="cpu", seed=1)
+    assert s2d.state_dict().keys() == port.state_dict().keys()
+    torch.testing.assert_close(s2d.backbone.conv1.weight, port.backbone.conv1.weight, rtol=0, atol=0)
+    del s2d
     with pytest.raises(NotImplementedError):
         port(torch.zeros(1))
     if not torch.cuda.is_available():

@@ -21,6 +21,7 @@ from detect_to_track_tpu_torch.data.synthetic import SyntheticVIDManager
 from detect_to_track_tpu_torch.losses import track_loss
 from detect_to_track_tpu_torch.models import DetectTrackModule
 from detect_to_track_tpu_torch.models.convert import from_jax_params
+from detect_to_track_tpu_torch.utils import space_to_depth2
 
 TINY = dict(
     N_CLASSES=6,
@@ -94,8 +95,10 @@ def test_batch_loader_matches_jax(setup):
     for got, want in zip(port.labels, ref.labels):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="HOST_S2D"):
-        trainer.BatchLoader(SyntheticVIDManager(4, cfg.INPUT_SHAPE), 2, cfg.replace(HOST_S2D=True))
+    # HOST_S2D packs each pair 2x2 space-to-depth on the host
+    s2d = next(iter(trainer.BatchLoader(SyntheticVIDManager(4, cfg.INPUT_SHAPE, n_classes=6), 2,
+                                        cfg.replace(HOST_S2D=True), seed=3)))
+    np.testing.assert_array_equal(s2d.images, space_to_depth2(port.images))
 
 
 def test_forward_losses_match_jax(setup, jax_step):
@@ -266,6 +269,5 @@ def test_train_step_entry_points(setup):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             trainer.make_train_step(model, cfg, trainer.make_optimizer(cfg, model))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        DetectTrackModule.from_config(cfg.replace(REMAT=True), device="cpu")
+    assert DetectTrackModule.from_config(cfg.replace(REMAT=True), device="cpu").backbone.remat
     assert model.backbone.first_trainable_stage == cfg.FIRST_TRAINABLE_STAGE

@@ -348,9 +348,11 @@ def test_trainer_rejects_empty_loaders_and_multi_device(tmp_path):
         _trainer(cfg, n_trn=1)
     with pytest.raises(ValueError, match="validation manager yields 0"):
         _trainer(cfg, n_val=1)
-    for bad in (dict(NUM_DEVICES=2), dict(NUM_HOSTS=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-            _trainer(cfg.replace(**bad))
+    # one process with no process group is a world of one
+    with pytest.raises(ValueError, match="NUM_DEVICES=2 must equal the world size, 1"):
+        _trainer(cfg.replace(NUM_DEVICES=2))
+    with pytest.raises(ValueError, match="NUM_HOSTS=2 must divide the world size 1"):
+        _trainer(cfg.replace(NUM_HOSTS=2))
 
 
 def test_logger_uses_only_an_active_wandb_run(tmp_path, monkeypatch):
