@@ -18,9 +18,23 @@ Phases, each printing a line:
   4. slice: the full-width detect-and-track path (cfg/default.yaml: ResNet-50,
      608x1200, bf16) with random weights from a seed, through
      Detector.__call__ and Detector.detect_pairs on a batch of BATCH_SIZE
-     pairs; the kernel launch counters are reset before and read after;
+     pairs (3 corr_fwd and 1 nms_mask launches per call); the kernel
+     launch counters are reset before and read after;
      the tracks are held against the same run with the plain correlation.
-  5. clip: ClipTracker (frame_chunk 8) on a 22-frame clip with the slice
+  5. nms: the NMS kernel (ops/csrc/nms.cu) against its plain fixed-point
+     loop, keep-masks bitwise, at the working point (8 frames x 3072
+     slots, 3000 eligible) on the slice phase's decoded RPN boxes and on
+     random boxes at IoU 0.3 and 0.5, at k = 1, 63, 64, 65 and 1000, and
+     against nms_np on one frame; its time, its two launches' times, the
+     plain loop's time and the bound.
+  6. export: export_detector on the slice phase's model at pair_batch
+     BATCH_SIZE (torch.export; the program written to a temporary
+     directory and deleted after the load), load_detector serving the slice
+     phase's uint8 pairs: 3 corr_fwd and 1 nms_mask launches per served
+     call, its outputs bitwise Detector.detect_pairs's, served against live
+     pairs/s; the same for the HOST_S2D program against the HOST_S2D
+     Detector. Prints the export and load seconds and the program's bytes.
+  7. clip: ClipTracker (frame_chunk 8) on a 22-frame clip with the slice
      phase's Detector: 3 chunks, each one detect_clip call (3 K1 launches)
      and the clip's link scores, then one launch of the linker kernel
      (ops/csrc/viterbi.cu); frames/s, device- against host-linked
@@ -29,28 +43,28 @@ Phases, each printing a line:
      case, the kernel against its plain version at D 1500 and 2048 (several
      slots per thread), detect_clip's tracks against the plain correlation,
      and the call's device time by stage.
-  6. train: full-width joint training steps (the same configuration, the
+  8. train: full-width joint training steps (the same configuration, the
      package's seeded init, synthetic frame pairs at INPUT_SHAPE): one
      warm-up step, then
      timed steps with the launch counters reset before and read after;
      finite losses, frozen stages bitwise unchanged, the track loss's
      gradients with respect to c4 and c5 held against the plain
      correlation, and one step's device time by stage.
-  7. trainer: the training entry point at full width (cfg/default.yaml with
+  9. trainer: the training entry point at full width (cfg/default.yaml with
      DATA_ROOT a fixture ILSVRC tree from tools/make_fixture_tree.py,
      TRN_SIZE 16, VAL_SIZE 8, REP_SIZE 2): `train.main` for 16 pairs (one
      epoch of 4 steps, validation, report overlays, checkpoints) with the
      kernel counters reset before and read after, a `--resume` to 24 pairs
      that must restore the saved weights and momentum bitwise, then
      `evaluate.main --all-ckpts` over the rotated checkpoints.
-  8. ddp: data parallelism on the one card, a check of correctness and not
+  10. ddp: data parallelism on the one card, a check of correctness and not
      of scaling: make_parallel_train_step (DistributedDataParallel) at world
      size 1 over NCCL against make_train_step, then two ranks (child
      processes of this script, `--ddp-rank`) sharing the card over gloo: a
      2-pair-per-rank step against the single-process 4-pair step,
      make_parallel_detect against Detector.detect_pairs, and train.main with
      NUM_DEVICES 2 for one epoch (ranks bitwise equal, rank 0 alone writes).
-  9. options: HOST_S2D's Detector against the plain stem, a REMAT step
+  11. options: HOST_S2D's Detector against the plain stem, a REMAT step
      against the plain step, sat against einsum pooling at the R-FCN head's
      shapes, and checked_loss_fn naming a poisoned loss component.
 The kernels phase also holds the backward kernels (corr_bwd_fm0,
@@ -386,6 +400,7 @@ def phase_slice(smi: str):
     from detect_to_track_tpu_torch.config import load_config
     from detect_to_track_tpu_torch.inference import Detector
     from detect_to_track_tpu_torch.ops.correlation import corr_fwd_cuda
+    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
 
     cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
     t0 = time.perf_counter()
@@ -401,16 +416,17 @@ def phase_slice(smi: str):
         f"(set-up {time.perf_counter() - t0:.1f} s)")
 
     def launched(fn):
-        before = corr_fwd_cuda.launches
+        before = corr_fwd_cuda.launches, nms_mask_cuda.launches
         out = fn()
         torch.cuda.synchronize()
-        delta = corr_fwd_cuda.launches - before
-        if delta != 3:
-            raise AssertionError(f"expected 3 correlation kernel launches per batched call, got {delta}")
+        delta = corr_fwd_cuda.launches - before[0], nms_mask_cuda.launches - before[1]
+        if delta != (3, 1):
+            raise AssertionError(f"expected 3 correlation and 1 NMS kernel launches per batched call, got {delta}")
         return out
 
     # ---- the main path: counters from 0, read right after ----
     corr_fwd_cuda.launches = 0
+    nms_mask_cuda.launches = 0
     n_calls = 0
     call_s = []
     for r in range(3):
@@ -431,9 +447,9 @@ def phase_slice(smi: str):
         out = launched(lambda: det.detect_pairs(pairs))
         batch_s.append(time.perf_counter() - t)
         n_calls += 1
-    launches = corr_fwd_cuda.launches
-    if launches != 3 * n_calls:
-        raise AssertionError(f"corr_fwd launched {launches} times in {n_calls} batched calls")
+    launches = {"corr_fwd": corr_fwd_cuda.launches, "nms_mask": nms_mask_cuda.launches}
+    if launches != {"corr_fwd": 3 * n_calls, "nms_mask": n_calls}:
+        raise AssertionError(f"kernel launches {launches} in {n_calls} batched calls")
 
     d = cfg.max_dets
     shapes = {"confs": (p, 2, d, cfg.N_CLASSES + 1), "boxes": (p, 2, d, 4), "valid": (p, 2, d), "tracks": (p, d, 4)}
@@ -449,7 +465,7 @@ def phase_slice(smi: str):
     pairs_per_s = p / min(batch_s[1:])
     log(f"[slice] detect_pairs x{p}: valid per frame {n_valid.tolist()}, "
         f"{[round(s * 1e3, 1) for s in batch_s]} ms per call (first one warms up)")
-    log(f"[slice] kernel launches on the main path: corr_fwd={launches} in {n_calls} batched calls")
+    log(f"[slice] kernel launches on the main path: {launches} in {n_calls} batched calls")
 
     # ---- the same batch with the plain correlation (not the main path) ----
     det.model.c_tracker.corr_impl = "torch"
@@ -472,6 +488,202 @@ def phase_slice(smi: str):
         f"__call__ {min(call_s[1:]) * 1e3:.1f} ms per pair; card: {smi}")
     phase_profile(f"detect_pairs x{len(pairs)}", lambda: det.detect_pairs(pairs))
     return launches, det
+
+
+# float32 operations per IoU compare in nms.cu (2 min, 2 max, 2 subtractions,
+# 2 clamps, the intersection, the union's add and subtraction, its sign test,
+# the division and the threshold compare)
+NMS_IOU_FLOPS = 14
+
+
+def nms_bound_ms(boxes, valid, keep, iou):
+    """least time for one greedy NMS call on these inputs: the IoU compares
+    this data needs (each kept slot, in order, against every later slot
+    still standing, as a sequential greedy NMS does) at the card's float32
+    rate, against the boxes and the valid mask read once and the keep-mask
+    written once. Returns (ms, "bytes" | "operations", compares)."""
+    import numpy as np
+
+    from detect_to_track_tpu_torch.boxes import compute_ious
+
+    over = (compute_ious(boxes, boxes) > iou).cpu().numpy()
+    standing_all, kept = valid.cpu().numpy().copy(), keep.cpu().numpy()
+    compares = 0
+    for f in range(over.shape[0]):
+        standing = standing_all[f]
+        for i in np.flatnonzero(kept[f]):
+            compares += int(standing[i + 1 :].sum())
+            standing[i + 1 :] &= ~over[f, i, i + 1 :]
+    t_ops = NMS_IOU_FLOPS * compares / F32_FLOPS * 1e3
+    t_bytes = (boxes.numel() * 4 + valid.numel() + keep.numel()) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations"), compares
+
+
+def _nms_boxes(seed, b, k, n_valid):
+    """(b, k, 4) clustered random ijhw boxes on the card (long suppression
+    chains), the first n_valid slots of each frame valid."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    centers = rng.random((max(k // 12, 1), 2))
+    ij = centers[rng.integers(0, len(centers), (b, k))] + rng.standard_normal((b, k, 2)) * 0.03
+    boxes = np.concatenate([ij, rng.random((b, k, 2)) * 0.2 + 0.02], -1).astype(np.float32)
+    valid = np.arange(k)[None].repeat(b, 0) < n_valid
+    return torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+
+
+def phase_nms(smi: str, det):
+    """the NMS kernel (ops/csrc/nms.cu) against the plain fixed-point loop
+    (nms_mask_ref) on the card, keep-masks bitwise: at the working point (2
+    x BATCH_SIZE frames x pre_nms_topk_eval slots, pre_nms_cap_eval of them
+    eligible) on the slice phase's decoded RPN boxes (score-descending, as
+    the proposal filter gives them) and on clustered random boxes, at IoU
+    EVAL_NMS_IOU_THRESH and TRAIN_NMS_IOU_THRESH; at k = 1, 63, 64, 65 and
+    1000; against nms_np on one frame. Runs after the slice phase, whose
+    model gives the RPN boxes; outside the main-path counts. Times the
+    kernel (CUDA events), its two launches (profiler) and the plain loop
+    (host reads included). Returns the kernels line's row."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from detect_to_track_tpu_torch.encoding import frcnn_box_decode
+    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda, nms_mask_ref, nms_np, top_k_proposals
+
+    cfg = det.cfg
+    k, cap = cfg.pre_nms_topk_eval, cfg.pre_nms_cap_eval
+    x = torch.from_numpy(slice_pairs(cfg)).cuda()
+    x = x.reshape(-1, *x.shape[2:])
+    with torch.inference_mode():
+        fmaps = det.model.backbone(x.float() / 255.0)
+        o_hat, b_hat, _ = det.model.rpn(fmaps["c4"])
+        props = top_k_proposals(o_hat[:, :, 1], frcnn_box_decode(det.anchors[None], b_hat),
+                                cfg.EVAL_ROI_CONF_THRESH, k)
+    rpn = (props.boxes.contiguous(), props.valid & (torch.arange(k, device="cuda") < cap))
+    inputs = {"decoded RPN": rpn, "random": _nms_boxes(0, x.shape[0], k, cap)}
+    ious = (cfg.EVAL_NMS_IOU_THRESH, cfg.TRAIN_NMS_IOU_THRESH)
+    row = None
+    for name, (boxes, valid) in inputs.items():
+        for iou in ious:
+            got = nms_mask_cuda(boxes, valid, iou)
+            ref = nms_mask_ref(boxes, valid, iou)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"the NMS kernel's keep-mask differs from the plain loop's on {name} boxes at "
+                                     f"IoU {iou}: {int((got != ref).sum())} slots")
+            ms = cuda_time_ms(lambda: nms_mask_cuda(boxes, valid, iou))
+            plain_ms = cuda_time_ms(lambda: nms_mask_ref(boxes, valid, iou), iters=3, warmup=1)
+            bound, by, compares = nms_bound_ms(boxes, valid, got, iou)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    nms_mask_cuda(boxes, valid, iou)
+                torch.cuda.synchronize()
+            split = {_kernel_short(e.key): getattr(e, "self_device_time_total", 0.0) / e.count / 1e3
+                     for e in prof.key_averages() if "nms_" in e.key}
+            log(f"[nms] {name} boxes {tuple(boxes.shape[:2])}, {int(valid.sum())} eligible, IoU {iou}: kernel = plain "
+                f"loop (bitwise), {int(got.sum())} kept; ms={ms:.4f} (per launch: "
+                f"{', '.join(f'{n} {t:.4f}' for n, t in split.items())}) plain_ms={plain_ms:.3f} "
+                f"bound_ms={bound:.6f} ({by}: {compares} IoU compares); card: {smi}")
+            if row is None:  # the serving path's case: decoded RPN boxes at the eval IoU
+                row = dict(err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    for kk in (1, 63, 64, 65, 1000):
+        boxes, valid = _nms_boxes(kk, 3, kk, kk - kk // 10)
+        for iou in ious:
+            if not torch.equal(nms_mask_cuda(boxes, valid, iou), nms_mask_ref(boxes, valid, iou)):
+                raise AssertionError(f"the NMS kernel differs from the plain loop at k = {kk}, IoU {iou}")
+    boxes, valid = rpn[0][0], rpn[1][0]
+    idx = torch.nonzero(valid).flatten().cpu().numpy()
+    scores = np.linspace(1.0, 0.0, len(idx), dtype=np.float32)
+    kept = idx[nms_np(scores, boxes.cpu().numpy()[idx], ious[0])]
+    got = torch.nonzero(nms_mask_cuda(boxes, valid, ious[0])).flatten().cpu().numpy()
+    if not np.array_equal(got, kept):
+        raise AssertionError("the NMS kernel differs from nms_np on the first frame's RPN boxes")
+    log(f"[nms] k = 1, 63, 64, 65, 1000 (3 frames each) at IoU {ious}: kernel = plain loop (bitwise); frame 0's RPN "
+        f"boxes: kernel = nms_np ({len(kept)} kept)")
+    return row
+
+
+def phase_export(smi: str, det):
+    """the serving export at full width: export_detector on the slice
+    phase's model at pair_batch BATCH_SIZE (into a temporary directory under
+    build/, deleted after the load), then load_detector serving the slice
+    phase's uint8 pairs, with the kernel counters reset before and read
+    after each served call (3 corr_fwd and 1 nms_mask); its four outputs
+    held bitwise against Detector.detect_pairs on the same pairs, and its
+    pairs/s beside the live call's. The same for the HOST_S2D program
+    (space_to_depth2 frames) against the HOST_S2D Detector. Returns the
+    launches of the served calls."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from detect_to_track_tpu_torch.export import export_detector, load_detector
+    from detect_to_track_tpu_torch.inference import Detector
+    from detect_to_track_tpu_torch.ops.correlation import corr_fwd_cuda
+    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
+    from detect_to_track_tpu_torch.utils import space_to_depth2
+
+    pairs = slice_pairs(det.cfg)
+    p = len(pairs)
+    total = {"corr_fwd": 0, "nms_mask": 0}
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_export_", dir=ROOT / "build"))
+    try:
+        for variant in ("plain", "HOST_S2D"):
+            cfg = det.cfg.replace(HOST_S2D=variant == "HOST_S2D")
+            live = det if variant == "plain" else Detector(det.model, cfg)
+            x = pairs if variant == "plain" else space_to_depth2(pairs)
+            path = work / f"detector_{variant}.pt2"
+            t = time.perf_counter()
+            export_detector(det.model, cfg, str(path), pair_batch=p)
+            export_s = time.perf_counter() - t
+            nbytes = path.stat().st_size
+            t = time.perf_counter()
+            serve = load_detector(str(path))
+            load_s = time.perf_counter() - t
+            path.unlink()
+            serve(x)  # warm-up
+            torch.cuda.synchronize()
+
+            # ---- the main path: counters from 0, read right after ----
+            corr_fwd_cuda.launches = 0
+            nms_mask_cuda.launches = 0
+            got = serve(x)
+            torch.cuda.synchronize()
+            launches = {"corr_fwd": corr_fwd_cuda.launches, "nms_mask": nms_mask_cuda.launches}
+            for key, v in launches.items():
+                total[key] += v
+            if launches != {"corr_fwd": 3, "nms_mask": 1}:
+                raise AssertionError(f"the served {variant} call launched {launches}, expected 3 corr_fwd, 1 nms_mask")
+
+            ref = live.detect_pairs(pairs)
+            diffs = {f: (a.float() - b.float()).abs().max().item() for f, a, b in zip(ref._fields, got, ref)}
+            same = all(torch.equal(a, b) for a, b in zip(got, ref))
+            log(f"[export] {variant}: input {tuple(x.shape)} {x.dtype}; export {export_s:.1f} s, program "
+                f"{nbytes} bytes, load {load_s:.1f} s; served call launches {launches}; outputs vs "
+                f"Detector.detect_pairs: {'bitwise equal' if same else f'DIFFERENT, largest differences {diffs}'}; "
+                f"valid per frame {got[2].sum(-1).tolist()}")
+            if not same:
+                raise AssertionError(f"the served {variant} program differs from Detector.detect_pairs: {diffs}")
+            # timed on the same input: the HOST_S2D Detector takes the packed
+            # frames as they are, so its host packing is outside both times
+            served_s, live_s = [], []
+            for _ in range(3):  # in turns: served, live
+                for fn, out in ((lambda: serve(x), served_s), (lambda: live.detect_pairs(x), live_s)):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    out.append(time.perf_counter() - t)
+            log(f"[export] {variant}: served {p / min(served_s):.2f} pairs/s ({[round(s * 1e3, 1) for s in served_s]} "
+                f"ms per {p}-pair call), live detect_pairs {p / min(live_s):.2f} pairs/s "
+                f"({[round(s * 1e3, 1) for s in live_s]} ms); card: {smi}")
+            del serve, live
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return total
 
 
 CLIP_FRAMES = 22
@@ -561,6 +773,7 @@ def phase_clip(smi: str, det):
     from detect_to_track_tpu_torch import viterbi_device as vd
     from detect_to_track_tpu_torch.clip import ClipTracker
     from detect_to_track_tpu_torch.ops.correlation import corr_fwd_cuda
+    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
     from detect_to_track_tpu_torch.viterbi import viterbi_multi_link
 
     cfg = det.cfg
@@ -588,20 +801,23 @@ def phase_clip(smi: str, det):
     log(f"[clip] warm-up call {(time.perf_counter() - t) * 1e3:.1f} ms")
 
     # ---- the main path: counters from 0, read right after ----
-    corr_fwd_cuda.launches = 0
-    vd.viterbi_multi_link_cuda.launches = 0
+    counted = (corr_fwd_cuda, vd.viterbi_multi_link_cuda, nms_mask_cuda)
+    for fn in counted:
+        fn.launches = 0
     clip_s = []
     for r in range(2):
-        before = (corr_fwd_cuda.launches, vd.viterbi_multi_link_cuda.launches)
+        before = [fn.launches for fn in counted]
         t = time.perf_counter()
         tubes = tracker(frames)
         torch.cuda.synchronize()
         clip_s.append(time.perf_counter() - t)
-        delta = (corr_fwd_cuda.launches - before[0], vd.viterbi_multi_link_cuda.launches - before[1])
-        if delta != (3 * len(starts), 1):
-            raise AssertionError(f"clip call {r}: launches (corr_fwd, linker) = {delta}, expected ({3 * len(starts)}, 1)")
+        delta = tuple(fn.launches - b for fn, b in zip(counted, before))
+        if delta != (3 * len(starts), 1, len(starts)):
+            raise AssertionError(f"clip call {r}: launches (corr_fwd, linker, nms) = {delta}, expected "
+                                 f"({3 * len(starts)}, 1, {len(starts)})")
         log(f"[clip] call {r}: {clip_s[-1] * 1e3:.1f} ms, {len(tubes)} tubelets, host upload time {tracker.last_upload_s * 1e3:.1f} ms")
-    launches = {"corr_fwd": corr_fwd_cuda.launches, "viterbi_multi_link": vd.viterbi_multi_link_cuda.launches}
+    launches = {"corr_fwd": corr_fwd_cuda.launches, "viterbi_multi_link": vd.viterbi_multi_link_cuda.launches,
+                "nms_mask": nms_mask_cuda.launches}
     log(f"[clip] kernel launches on the main path: {launches} in 2 clip calls")
     if not tubes:
         raise AssertionError("the clip gave no tubelet")
@@ -729,6 +945,7 @@ def phase_train(smi: str, steps: int = 3):
     from detect_to_track_tpu_torch import trainer
     from detect_to_track_tpu_torch.config import load_config
     from detect_to_track_tpu_torch.ops import correlation as corr
+    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
 
     cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
     p = cfg.BATCH_SIZE
@@ -757,7 +974,7 @@ def phase_train(smi: str, steps: int = 3):
 
     # ---- the main path: counters from 0, read right after ----
     counters = {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
-                "corr_bwd_fm1": corr.corr_bwd_fm1_cuda}
+                "corr_bwd_fm1": corr.corr_bwd_fm1_cuda, "nms_mask": nms_mask_cuda}
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -769,8 +986,9 @@ def phase_train(smi: str, steps: int = 3):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         delta = [fn.launches - s0 for fn, s0 in zip(counters.values(), start)]
-        if delta != [3, 2, 2]:
-            raise AssertionError(f"step {i}: launches (corr_fwd, corr_bwd_fm0, corr_bwd_fm1) = {delta}, expected [3, 2, 2]")
+        if delta != [3, 2, 2, 1]:
+            raise AssertionError(f"step {i}: launches (corr_fwd, corr_bwd_fm0, corr_bwd_fm1, nms_mask) = {delta}, "
+                                 "expected [3, 2, 2, 1]")
         o, a, c, r, tr = checked(dtl, f"step {i}")
         log(f"[train] step {i}: {step_s[-1] * 1e3:.1f} ms, losses o {o:.4e} a {a:.4e} c {c:.4e} r {r:.4e} t {tr:.4e}")
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -842,6 +1060,7 @@ def phase_trainer(smi: str):
     from detect_to_track_tpu_torch import evaluate, train
     from detect_to_track_tpu_torch.config import load_config, save_config
     from detect_to_track_tpu_torch.ops import correlation as corr
+    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
     from detect_to_track_tpu_torch.trainer import DetectTrackTrainer, TrainStep
 
     work = ROOT / "build" / "chip_smoke_trainer"
@@ -862,7 +1081,7 @@ def phase_trainer(smi: str):
 
     # ---- the main path: counters from 0, read right after ----
     counters = {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
-                "corr_bwd_fm1": corr.corr_bwd_fm1_cuda}
+                "corr_bwd_fm1": corr.corr_bwd_fm1_cuda, "nms_mask": nms_mask_cuda}
     for fn in counters.values():
         fn.launches = 0
     # where the loop's wall time goes: each call of these methods, timed to
@@ -898,7 +1117,7 @@ def phase_trainer(smi: str):
             setattr(cls, attr, originals[name])
     launches = {name: fn.launches for name, fn in counters.items()}
     expected = {"corr_fwd": 3 * (steps + val_batches + rep_pairs), "corr_bwd_fm0": 2 * steps,
-                "corr_bwd_fm1": 2 * steps}
+                "corr_bwd_fm1": 2 * steps, "nms_mask": steps + val_batches + rep_pairs}
     log(f"[trainer] train.main: {steps} steps, {val_batches} validation batches, {rep_pairs} report pairs in "
         f"{wall:.2f} s wall = {cfg.TRN_SIZE / wall:.2f} training pairs/s over the whole loop (JPEG decoding, "
         f"validation, report and checkpoints included); card: {smi}")
@@ -1542,7 +1761,8 @@ def phase_profile(label, fn, top: int = 15):
     events = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in events if e.device_type == cuda and not getattr(e, "is_user_annotation", False)]
-    stages = [e for e in events if e.device_type != cuda and e.key.startswith("d2t::")]
+    ops = ("d2t::corr_fwd", "d2t::corr_bwd_fm0", "d2t::corr_bwd_fm1", "d2t::nms_mask")  # nested in stages
+    stages = [e for e in events if e.device_type != cuda and e.key.startswith("d2t::") and e.key not in ops]
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy = sum(dev_us(e) for e in kernels)
     log(f"[profile] {label}: wall {wall_us / 1e3:.1f} ms (profiled), device busy "
@@ -1550,17 +1770,21 @@ def phase_profile(label, fn, top: int = 15):
     for e in stages:
         log(f"[profile]   stage {e.key[5:]:<16s} device {e.device_time_total / 1e3:8.3f} ms "
             f"{100 * e.device_time_total / max(busy, 1e-9):5.1f}% of busy, host {e.cpu_time_total / 1e3:8.3f} ms")
+    for e in events:
+        if e.device_type != cuda and e.key in ops:
+            log(f"[profile]   op {e.key:<19s} device {e.device_time_total / 1e3:8.3f} ms in {e.count} calls, host "
+                f"{e.cpu_time_total / 1e3:8.3f} ms (inside the stages above)")
     bwd = [e for e in events if e.device_type != cuda and e.key.startswith("autograd::engine::evaluate_function")]
     if bwd:
         bwd_us = sum(e.device_time_total for e in bwd)
         log(f"[profile]   autograd backward nodes device {bwd_us / 1e3:8.3f} ms "
             f"{100 * bwd_us / max(busy, 1e-9):5.1f}% of busy, {sum(e.count for e in bwd)} nodes")
-    nms_iters = sum(e.count for e in events if e.key == "aten::equal")
-    log(f"[profile]   fixed-point NMS iterations (torch.equal calls): {nms_iters}")
+    host_reads = sum(e.count for e in events if e.key == "aten::equal")
+    log(f"[profile]   torch.equal host reads (the plain NMS loop's iterations; the kernel has none): {host_reads}")
     ranked = sorted(kernels, key=dev_us, reverse=True)
     # the top kernels, then the port's own kernels wherever they rank
     for rank, e in enumerate(ranked):
-        if rank < top or "corr_" in e.key or "viterbi" in e.key:
+        if rank < top or "corr_" in e.key or "viterbi" in e.key or "nms_" in e.key:
             log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / max(busy, 1e-9):5.1f}%  x{e.count:<4d} "
                 f"#{rank + 1:<3d} {e.key[:90]}")
 
@@ -1577,6 +1801,8 @@ def main() -> int:
     rows = phase_kernels(pairs=4)
     bwd_rows = phase_bwd_kernels(pairs=4)
     slice_launches, det = phase_slice(smi)
+    nms_row = phase_nms(smi, det)
+    export_launches = phase_export(smi, det)
     clip_launches, linker_row = phase_clip(smi, det)
     del det
     train_launches = phase_train(smi)
@@ -1597,8 +1823,8 @@ def main() -> int:
         errs[name] = [r["err"] for r in bwd_rows if r["kernel"] == name]
     meta = {
         "corr_fwd": ("detect_to_track_tpu_torch/ops/csrc/corr_fwd.cu", "detect_to_track_tpu/ops/correlation.py:92",
-                     slice_launches + clip_launches["corr_fwd"] + train_launches["corr_fwd"]
-                     + trainer_launches["corr_fwd"] + extra["corr_fwd"]),
+                     slice_launches["corr_fwd"] + export_launches["corr_fwd"] + clip_launches["corr_fwd"]
+                     + train_launches["corr_fwd"] + trainer_launches["corr_fwd"] + extra["corr_fwd"]),
         "corr_bwd_fm0": ("detect_to_track_tpu_torch/ops/csrc/corr_bwd.cu", "detect_to_track_tpu/ops/correlation.py:187",
                          train_launches["corr_bwd_fm0"] + trainer_launches["corr_bwd_fm0"] + extra["corr_bwd_fm0"]),
         # one kernel for both TPU dFM1 kernels: K3 (:378, H <= 40) and K4 (:267)
@@ -1629,6 +1855,22 @@ def main() -> int:
         "plain_ms": linker_row["plain_ms"],
         "bound_ms": linker_row["bound_ms"],
         "bound_by": linker_row["bound_by"],
+        "library_ms": None,
+    })
+    # the paths that count NMS launches: slice, export, clip, train, trainer
+    nms_launches = sum(x["nms_mask"] for x in (slice_launches, export_launches, clip_launches, train_launches,
+                                                trainer_launches))
+    kernels.append({
+        "name": "nms_mask",
+        "route": "cuda",
+        "source": "detect_to_track_tpu_torch/ops/csrc/nms.cu",
+        "replaces": "detect_to_track_tpu/ops/nms.py:55 (nms_mask, an XLA while_loop, not a Pallas kernel)",
+        "launches": nms_launches,
+        "max_abs_err": nms_row["err"],
+        "ms": nms_row["ms"],
+        "plain_ms": nms_row["plain_ms"],
+        "bound_ms": nms_row["bound_ms"],
+        "bound_by": nms_row["bound_by"],
         "library_ms": None,
     })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,9 +1,12 @@
-"""the port's ops: the plain PyTorch versions (`torch_ref`), the pooling and
-proposal filter (plain PyTorch, as the JAX package left them to XLA) and
-the correlation, whose forward is a hand-written CUDA kernel
-(`csrc/corr_fwd.cu`)."""
+"""the port's ops: the plain PyTorch versions (`torch_ref`), the pooling
+(plain PyTorch, as the JAX package left it to XLA), the proposal filter
+around the greedy NMS (the op `d2t::nms_mask`, the hand-written CUDA
+kernel `csrc/nms.cu` on the card) and the correlation, whose kernels
+(`csrc/corr_fwd.cu`, `csrc/corr_bwd.cu`) are the ops `d2t::corr_fwd`,
+`d2t::corr_bwd_fm0` and `d2t::corr_bwd_fm1`. Importing this package
+registers the ops, which an exported program (`export.py`) calls."""
 
 from .correlation import corr_fwd_cuda, pointwise_correlation
-from .nms import Proposals, batched_proposal_filter, nms_mask, proposal_filter, top_k_proposals
+from .nms import Proposals, batched_proposal_filter, nms_mask, nms_mask_ref, proposal_filter, top_k_proposals
 from .pooling import ps_roi_pool, roi_pool, roi_pool_linear
 from .torch_ref import pointwise_correlation_ref, ps_roi_pool_ref, roi_pool_ref

@@ -25,7 +25,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 # kernel library name -> source file under csrc/
-SOURCES: Dict[str, str] = {"corr_fwd": "corr_fwd.cu", "corr_bwd": "corr_bwd.cu", "viterbi": "viterbi.cu"}
+SOURCES: Dict[str, str] = {
+    "corr_fwd": "corr_fwd.cu", "corr_bwd": "corr_bwd.cu", "viterbi": "viterbi.cu", "nms": "nms.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

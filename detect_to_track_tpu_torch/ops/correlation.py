@@ -18,6 +18,14 @@ sums); f32 maps run the CUDA-core kernels (f32 FMAs), because the f32 gate
 of 1e-5 of the largest magnitude rules out bf16 tensor cores.
 A CUDA tensor launches them or raises; only CPU tensors take the plain
 version, whose autograd is the plain backward.
+
+The three kernels are registered ops, so that `torch.export` traces them
+(a ctypes launch needs data pointers, which the fake tensors of a trace do
+not have): `d2t::corr_fwd`, `d2t::corr_bwd_fm0` and `d2t::corr_bwd_fm1`,
+each with a fake that gives its output's shape and dtype, and `corr_fwd`
+with an autograd formula that calls the two backward ops. The plain version
+stays outside any op: autograd does not record inside an op's body, and the
+plain backward is autograd through the plain forward.
 """
 
 from __future__ import annotations
@@ -207,28 +215,44 @@ def corr_bwd_fm1_ref(g: torch.Tensor, fm0: torch.Tensor, d_max: int, stride: int
         return torch.autograd.grad(out, fm1, g)[0]
 
 
-class _CorrFunction(torch.autograd.Function):
-    """the kernels as an autograd node (k2hw output): the forward kernel,
-    and a backward that launches corr_bwd_fm0 / corr_bwd_fm1 for the inputs
-    that need a gradient."""
+corr_fwd = torch.library.custom_op("d2t::corr_fwd", corr_fwd_cuda, mutates_args=())
+corr_bwd_fm0 = torch.library.custom_op("d2t::corr_bwd_fm0", corr_bwd_fm0_cuda, mutates_args=())
+corr_bwd_fm1 = torch.library.custom_op("d2t::corr_bwd_fm1", corr_bwd_fm1_cuda, mutates_args=())
 
-    @staticmethod
-    def forward(ctx, fm0, fm1, d_max, stride):
-        fm0 = fm0.contiguous()
-        fm1 = fm1.contiguous()
-        ctx.save_for_backward(fm0, fm1)
-        ctx.d_max, ctx.stride = d_max, stride
-        return corr_fwd_cuda(fm0, fm1, d_max, stride)
 
-    @staticmethod
-    def backward(ctx, grad):
-        fm0, fm1 = ctx.saved_tensors
-        d_fm0 = d_fm1 = None
-        if ctx.needs_input_grad[0]:
-            d_fm0 = corr_bwd_fm0_cuda(grad, fm1, ctx.d_max, ctx.stride)
-        if ctx.needs_input_grad[1]:
-            d_fm1 = corr_bwd_fm1_cuda(grad, fm0, ctx.d_max, ctx.stride)
-        return d_fm0, d_fm1, None, None
+@corr_fwd.register_fake
+def _corr_fwd_fake(fm0: torch.Tensor, fm1: torch.Tensor, d_max: int, stride: int) -> torch.Tensor:
+    b, h, w, _ = fm0.shape
+    k = 2 * d_max + 1
+    return fm0.new_empty((b, k * k, h, w), dtype=torch.float32)
+
+
+def _corr_bwd_fake(g: torch.Tensor, fm: torch.Tensor, d_max: int, stride: int) -> torch.Tensor:
+    return fm.new_empty(fm.shape)
+
+
+corr_bwd_fm0.register_fake(_corr_bwd_fake)
+corr_bwd_fm1.register_fake(_corr_bwd_fake)
+
+
+def _corr_setup_context(ctx, inputs, output) -> None:
+    fm0, fm1, d_max, stride = inputs
+    ctx.save_for_backward(fm0, fm1)
+    ctx.d_max, ctx.stride = d_max, stride
+
+
+def _corr_backward(ctx, grad):
+    """corr_bwd_fm0 / corr_bwd_fm1 for the inputs that need a gradient."""
+    fm0, fm1 = ctx.saved_tensors
+    d_fm0 = d_fm1 = None
+    if ctx.needs_input_grad[0]:
+        d_fm0 = corr_bwd_fm0(grad, fm1, ctx.d_max, ctx.stride)
+    if ctx.needs_input_grad[1]:
+        d_fm1 = corr_bwd_fm1(grad, fm0, ctx.d_max, ctx.stride)
+    return d_fm0, d_fm1, None, None
+
+
+corr_fwd.register_autograd(_corr_backward, setup_context=_corr_setup_context)
 
 
 def pointwise_correlation(
@@ -274,7 +298,7 @@ def pointwise_correlation(
         return out
     if impl != "cuda":
         raise ValueError(f"unknown impl {impl!r} (use 'auto', 'cuda' or 'torch')")
-    out = _CorrFunction.apply(fm0, fm1, d_max, stride)  # (B, K2, H, W)
+    out = corr_fwd(fm0, fm1, d_max, stride)  # (B, K2, H, W)
     if layout == "nhwkk":
         b, _, h, w = out.shape
         out = out.permute(0, 2, 3, 1).reshape(b, h, w, k, k)

@@ -4,16 +4,25 @@ Port of the JAX package's `ops/nms.py`, batched over a leading frame axis.
 Every sort is stable and score-descending, so ties go to the lower index as
 `jax.lax.top_k` and `jnp.argsort` order them: NMS keep-sets and compaction
 then match the JAX package exactly.
+
+The greedy NMS is the registered op `d2t::nms_mask` (`nms_mask`): on CUDA
+tensors it launches the hand-written kernel `csrc/nms.cu` (the whole
+keep-mask on the card, no host read), on CPU tensors it runs the plain
+fixed-point loop `nms_mask_ref`. Its fake gives `torch.export` the output's
+shape, so the proposal filter traces into an exported graph.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..boxes import compute_ious, compute_ious_np
+from . import _build
+from .correlation import _MAX_SMEM_BYTES
 
 
 class Proposals(NamedTuple):
@@ -52,8 +61,9 @@ def top_k_proposals(
     )
 
 
-def nms_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
-    """exact greedy NMS keep-mask over score-descending candidates.
+def nms_mask_ref(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """exact greedy NMS keep-mask over score-descending candidates: the
+    plain version of the kernel.
 
     Iterates keep <- valid & ~any_{j<i}(keep[j] & overlaps[j, i]) from
     keep = valid to its fixed point, which is the greedy result (every
@@ -61,19 +71,90 @@ def nms_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> tor
     iterations). Bounded by k iterations, as in the JAX package; each
     iteration's convergence test reads one flag back to the host.
 
-    boxes: (..., k, 4); valid: (..., k) bool. Returns keep (..., k) bool.
+    boxes: (..., k, 4); valid: (..., k) bool. Returns keep (..., k) bool, a
+    new tensor (never `valid` itself).
     """
     k = boxes.shape[-2]
     overlaps = compute_ious(boxes, boxes) > iou_thresh  # (..., k, k)
     order = torch.arange(k, device=boxes.device)
     sup = overlaps & (order[:, None] < order[None, :])  # j suppresses i > j
-    keep = valid
+    keep = valid.clone()
     for _ in range(k):
         new = valid & ~(keep[..., :, None] & sup).any(dim=-2)
         if torch.equal(new, keep):
             break
         keep = new
     return keep
+
+
+def _nms_lib() -> ctypes.CDLL:
+    lib = _build.load("nms")
+    lib.d2t_nms_mask.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.d2t_nms_mask.restype = ctypes.c_int
+    lib.d2t_nms_sweep_smem_bytes.argtypes = [ctypes.c_int]
+    lib.d2t_nms_sweep_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """launch the NMS kernel (csrc/nms.cu) on (..., k, 4) float32 ijhw boxes,
+    score-descending, and (..., k) bool CUDA tensors, any k >= 1: the IoU
+    bit mask, then one block per frame sweeps it in index order. Returns
+    keep (..., k) bool, bitwise nms_mask_ref's. Counts each call (two
+    launches) in `nms_mask_cuda.launches`."""
+    if not (boxes.is_cuda and valid.is_cuda) or boxes.device != valid.device:
+        raise ValueError(f"the NMS kernel needs CUDA tensors on one device, got {boxes.device} and {valid.device}")
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise ValueError(f"the NMS kernel takes float32 boxes and a bool mask, got {boxes.dtype} and {valid.dtype}")
+    if boxes.dim() < 2 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:-1]:
+        raise ValueError(f"expected (..., k, 4) boxes and a (..., k) mask, got {tuple(boxes.shape)} and "
+                         f"{tuple(valid.shape)}")
+    k = boxes.shape[-2]
+    b = valid.numel() // max(k, 1)
+    if k < 1 or not 1 <= b <= 65535:
+        raise ValueError(f"the NMS kernel takes 1-65535 frames of k >= 1 slots, got {b} frames of {k}")
+    lib = _nms_lib()
+    smem = lib.d2t_nms_sweep_smem_bytes(k)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"k={k} slots need a {smem}-byte bitset in shared memory, more than the "
+                         f"{_MAX_SMEM_BYTES} a Hopper block can use")
+    nw = -(-k // 64)
+    flat_boxes = boxes.reshape(b, k, 4).contiguous()
+    flat_valid = valid.reshape(b, k).contiguous()
+    mask = torch.empty((b, k, nw), dtype=torch.int64, device=boxes.device)
+    keep = torch.empty((b, k), dtype=torch.bool, device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        err = lib.d2t_nms_mask(
+            flat_boxes.data_ptr(), flat_valid.data_ptr(), mask.data_ptr(), keep.data_ptr(), b, k, iou_thresh, stream
+        )
+    if err != 0:
+        raise RuntimeError(f"NMS kernel launch failed: CUDA error {err}")
+    nms_mask_cuda.launches += 1
+    return keep.reshape(valid.shape)
+
+
+nms_mask_cuda.launches = 0
+
+
+@torch.library.custom_op("d2t::nms_mask", mutates_args=(), device_types="cpu")
+def nms_mask(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """exact greedy NMS keep-mask over score-descending candidates, the op
+    `d2t::nms_mask`: slot i is kept iff valid and no kept slot j < i has IoU
+    > iou_thresh with it. The kernel for CUDA tensors (nms_mask_cuda), the
+    plain fixed-point loop for CPU tensors (nms_mask_ref).
+
+    boxes: (..., k, 4); valid: (..., k) bool. Returns keep (..., k) bool.
+    """
+    return nms_mask_ref(boxes, valid, iou_thresh)
+
+
+nms_mask.register_kernel("cuda")(nms_mask_cuda)
+
+
+@nms_mask.register_fake
+def _nms_mask_fake(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    return torch.empty_like(valid)
 
 
 def proposal_filter(

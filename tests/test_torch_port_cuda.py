@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from detect_to_track_tpu_torch import viterbi_device
-from detect_to_track_tpu_torch.ops import correlation
+from detect_to_track_tpu_torch.ops import correlation, nms
 from detect_to_track_tpu_torch.viterbi import viterbi_multi_link
 
 pytestmark = pytest.mark.gpu
@@ -258,3 +258,88 @@ def test_linker_raises_without_its_kernel(cuda, monkeypatch):
     monkeypatch.setattr(viterbi_device, "_viterbi_lib", FailingLaunch)
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         viterbi_device.viterbi_multi_link_scan(seq, init)
+
+
+# ---------------------------------------------------------------- NMS kernel and the registered ops
+
+
+def _nms_problem(seed, b, k, n_valid=None):
+    """(b, k, 4) clustered ijhw boxes (long suppression chains, exact
+    duplicates) and (b, k) valid, the first n_valid slots eligible (all but
+    a random 10% when None)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.random((max(k // 12, 1), 2))
+    ij = centers[rng.integers(0, len(centers), (b, k))] + rng.standard_normal((b, k, 2)) * 0.03
+    boxes = np.concatenate([ij, rng.random((b, k, 2)) * 0.2 + 0.02], -1).astype(np.float32)
+    if k >= 4:
+        boxes[:, 3] = boxes[:, 1]
+    valid = rng.random((b, k)) > 0.1 if n_valid is None else np.arange(k)[None].repeat(b, 0) < n_valid
+    return torch.from_numpy(boxes), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("iou", [0.3, 0.5])
+@pytest.mark.parametrize("case", [(8, 3072, 3000), (3, 1, None), (3, 63, None), (2, 64, None), (2, 65, None),
+                                  (2, 1000, None), (1, 4099, None)], ids=str)
+def test_nms_kernel_matches_plain(cuda, case, iou):
+    """the kernel's keep-mask equals the plain fixed-point loop's bitwise,
+    on the card and on the CPU, at the working point (8 frames x 3072 slots,
+    3000 eligible) and at k around a 64-slot word."""
+    b, k, n_valid = case
+    boxes, valid = _nms_problem(k, b, k, n_valid)
+    before = nms.nms_mask_cuda.launches
+    got = torch.ops.d2t.nms_mask(boxes.to(cuda), valid.to(cuda), iou)
+    torch.cuda.synchronize()
+    assert nms.nms_mask_cuda.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == (b, k) and got.is_cuda
+    assert torch.equal(got, nms.nms_mask_ref(boxes.to(cuda), valid.to(cuda), iou))
+    assert torch.equal(got.cpu(), nms.nms_mask_ref(boxes, valid, iou))
+
+
+def test_nms_kernel_rejects_bad_input(cuda):
+    boxes, valid = (x.to(cuda) for x in _nms_problem(0, 2, 10))
+    launches = nms.nms_mask_cuda.launches
+    with pytest.raises(ValueError, match="float32"):
+        nms.nms_mask_cuda(boxes.double(), valid, 0.3)
+    with pytest.raises(ValueError, match="k, 4"):
+        nms.nms_mask_cuda(boxes[..., :3], valid, 0.3)
+    with pytest.raises(ValueError, match="k >= 1"):
+        nms.nms_mask_cuda(boxes[:, :0], valid[:, :0], 0.3)
+    assert nms.nms_mask_cuda.launches == launches
+
+
+def test_correlation_ops_opcheck(cuda):
+    """torch.library.opcheck on the three correlation ops with CUDA inputs:
+    schema, fakes against the kernels, the autograd registration of
+    corr_fwd (its backward the two backward ops) and AOT dispatch."""
+    for dtype in DTYPES:
+        fm0, fm1 = (x.requires_grad_() for x in _maps((2, 9, 13, 12), dtype, cuda))
+        torch.library.opcheck(torch.ops.d2t.corr_fwd.default, (fm0, fm1, 2, 1))
+        g = torch.randn(2, 25, 9, 13, device=cuda)
+        for op in (torch.ops.d2t.corr_bwd_fm0.default, torch.ops.d2t.corr_bwd_fm1.default):
+            torch.library.opcheck(op, (g, fm1.detach(), 2, 2))
+
+
+def test_export_on_card_holds_the_kernels(cuda, tmp_path):
+    """a tiny detector (ResNet-50 at 64x96, bf16) exported on the card: its
+    graph calls d2t::corr_fwd (3 times) and d2t::nms_mask, the served call
+    launches the kernels and its outputs equal the live call's."""
+    from detect_to_track_tpu_torch.config import Config
+    from detect_to_track_tpu_torch.export import export_detector, load_detector
+    from detect_to_track_tpu_torch.inference import Detector
+    from detect_to_track_tpu_torch.models import DetectTrackModule
+
+    cfg = Config(N_CLASSES=5, INPUT_SHAPE=(64, 96), ANCHOR_AREAS=(0.05,), K=3, D_MAX=2, PRE_NMS_TOPK=None,
+                 EVAL_MAX_ROIS=72, MAX_ROIS=72, MAX_DETS=72)
+    det = Detector(DetectTrackModule.from_config(cfg, device=cuda), cfg, device=cuda)
+    path = tmp_path / "detector.pt2"
+    export_detector(det.model, cfg, str(path), pair_batch=2, device=cuda)
+    code = torch.export.load(str(path)).graph_module.code
+    assert code.count("torch.ops.d2t.corr_fwd.default") == 3 and code.count("torch.ops.d2t.nms_mask.default") == 1
+    serve = load_detector(str(path), device=cuda)
+    pairs = np.random.default_rng(0).integers(0, 256, (2, 2, 64, 96, 3), dtype=np.uint8)
+    counts = correlation.corr_fwd_cuda.launches, nms.nms_mask_cuda.launches
+    got = serve(pairs)
+    torch.cuda.synchronize()
+    assert (correlation.corr_fwd_cuda.launches - counts[0], nms.nms_mask_cuda.launches - counts[1]) == (3, 1)
+    for g, r in zip(got, det.detect_pairs(pairs)):
+        assert torch.equal(g, r)
