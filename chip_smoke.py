@@ -41,8 +41,9 @@ Phases, each printing a line:
      tubelets, the kernel against its plain version on the clip's score
      matrices and against the native linker on a 64-frame linking-only
      case, the kernel against its plain version at D 1500 and 2048 (several
-     slots per thread), detect_clip's tracks against the plain correlation,
-     and the call's device time by stage.
+     slots per thread), each with the score matrices unchanged after the
+     launch and the bytes its DP steps read, detect_clip's tracks against
+     the plain correlation, and the call's device time by stage.
   8. train: full-width joint training steps (the same configuration, the
      package's seeded init, synthetic frame pairs at INPUT_SHAPE): one
      warm-up step, then
@@ -73,6 +74,11 @@ kernel is held in the clip phase. The script prints
 its total time, then the card's name and power limit, then the kernels
 JSON, and last the device JSON. Any failed check raises, so the script
 exits non-zero.
+
+`python3 chip_smoke.py --linker` runs the device and build phases and then
+the linker kernel alone (a clip-like 22-frame problem at D 128 against its
+plain version, then the clip phase's linking-only cases): a quick check of
+a linker change, not the smoke test.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -743,6 +749,30 @@ def linker_bound_ms(t1, d, dp_steps):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def linker_stream(dp_steps, d, ms):
+    """the bytes of the score matrices the linker's DP steps read (one D x D
+    f32 matrix a step) and that rate at `ms` per call."""
+    nbytes = dp_steps * d * d * 4
+    return f"dp_bytes={nbytes} dp_rate={nbytes / (ms * 1e-3) / 1e9:.1f} GB/s"
+
+
+def checked_linker(seq, init):
+    """one linker launch outside the main-path count, with the check that
+    the kernel left the caller's score matrices and init scores as they
+    were (it reads them in place)."""
+    import torch
+
+    from detect_to_track_tpu_torch import viterbi_device as vd
+
+    seq_before, init_before = seq.clone(), init.clone()
+    got = vd.viterbi_multi_link_cuda(seq, init)
+    torch.cuda.synchronize()
+    if not (torch.equal(seq.view(torch.int32), seq_before.view(torch.int32))
+            and torch.equal(init.view(torch.int32), init_before.view(torch.int32))):
+        raise AssertionError("the linker kernel changed its input score matrices")
+    return got
+
+
 def _same_paths(got, ref):
     import torch
 
@@ -755,6 +785,52 @@ def _trimmed(paths):
     n = int(paths.n_paths)
     spans, scores, nodes = (x[:n].cpu().numpy() for x in (paths.spans, paths.scores, paths.nodes))
     return [((int(s), int(e)), float(sc), nd[s : e + 1].tolist()) for (s, e), sc, nd in zip(spans, scores, nodes)]
+
+
+def linker_cases(d):
+    """the linker kernel on linking-only cases, outside the main-path count:
+    64 frames at D d against the native linker, and 3 frames at D 1500 and
+    2048 (several slots per thread) against its plain version; each with its
+    time and the DP's streamed bytes."""
+    import numpy as np
+    import torch
+
+    from detect_to_track_tpu_torch import viterbi_device as vd
+    from detect_to_track_tpu_torch.viterbi import viterbi_multi_link
+
+    # the linking-only case: 64 frames against the native linker
+    seq64, init64 = link_problem(0, 64, d)
+    s64, i64 = torch.from_numpy(seq64).cuda(), torch.from_numpy(init64).cuda()
+    got64 = _trimmed(checked_linker(s64, i64))
+    t = time.perf_counter()
+    nat64 = viterbi_multi_link(list(seq64), list(init64), use_native=True)
+    native64_ms = (time.perf_counter() - t) * 1e3
+    if got64 != nat64:
+        raise AssertionError("the linker kernel disagrees with the native linker at T = 64")
+    ms64 = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(s64, i64), iters=5, warmup=1)
+    steps64, full64 = linker_dp_steps([p[0] for p in got64])
+    bound64, by64 = linker_bound_ms(seq64.shape[0], d, steps64)
+    log(f"[clip] linker {seq64.shape[0]}x{d}x{d} (dyadic scores, {100 * float(np.isinf(seq64).mean()):.1f}% -inf): "
+        f"kernel = native linker (spans, nodes, scores), input unchanged; {len(got64)} paths "
+        f"({sum(e > 0 for (_, e), _, _ in got64)} extractions), {steps64} DP steps run ({full64} from step 0); "
+        f"ms={ms64:.4f} {linker_stream(steps64, d, ms64)} native_ms={native64_ms:.2f} "
+        f"bound_ms={bound64:.6f} ({by64})")
+
+    # several slots per thread: D 1500 and 2048 on a short dyadic clip
+    for d_big in (1500, 2048):
+        seq_b, init_b = (torch.from_numpy(x).cuda() for x in link_problem(d_big, 3, d_big))
+        got_b = checked_linker(seq_b, init_b)
+        t = time.perf_counter()
+        ref_b = vd.viterbi_multi_link_ref(seq_b, init_b)
+        torch.cuda.synchronize()
+        plain_b = (time.perf_counter() - t) * 1e3
+        if not _same_paths(got_b, ref_b):
+            raise AssertionError(f"the linker kernel disagrees with its plain version at D = {d_big}")
+        ms_b = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(seq_b, init_b), iters=3, warmup=1)
+        steps_b, _ = linker_dp_steps([p[0] for p in _trimmed(got_b)])
+        log(f"[clip] linker 2x{d_big}x{d_big} (dyadic scores, {-(-d_big // 1024)} slots per thread at most): "
+            f"kernel = plain version (n_paths {int(got_b.n_paths)}, spans, nodes, bitwise scores), input unchanged; "
+            f"{steps_b} DP steps run; ms={ms_b:.4f} {linker_stream(steps_b, d_big, ms_b)} plain_ms={plain_b:.1f}")
 
 
 def phase_clip(smi: str, det):
@@ -858,8 +934,7 @@ def phase_clip(smi: str, det):
     if not same:
         raise AssertionError("device- and host-linked tubelets differ")
 
-    got = vd.viterbi_multi_link_cuda(seq, init)
-    torch.cuda.synchronize()
+    got = checked_linker(seq, init)
     t = time.perf_counter()
     ref = vd.viterbi_multi_link_ref(seq, init)
     torch.cuda.synchronize()
@@ -875,42 +950,12 @@ def phase_clip(smi: str, det):
     steps, full = linker_dp_steps([p[0] for p in paths])
     bound, by = linker_bound_ms(n - 1, cfg.max_dets, steps)
     log(f"[clip] linker {n - 1}x{cfg.max_dets}x{cfg.max_dets}: kernel = plain version (n_paths, spans, nodes, "
-        f"bitwise scores); {len(paths)} paths ({sum(e > 0 for (_, e), _, _ in paths)} extractions), {steps} DP steps "
-        f"run ({full} from step 0); ms={ms:.4f} plain_ms={plain_ms:.1f} native_ms={native_ms:.2f} bound_ms={bound:.6f} "
+        f"bitwise scores), input unchanged; {len(paths)} paths ({sum(e > 0 for (_, e), _, _ in paths)} extractions), "
+        f"{steps} DP steps run ({full} from step 0); ms={ms:.4f} {linker_stream(steps, cfg.max_dets, ms)} "
+        f"plain_ms={plain_ms:.1f} native_ms={native_ms:.2f} bound_ms={bound:.6f} "
         f"({by}: the score matrices read once, outputs written once, an add and a compare per entry per DP step)")
 
-    # the linking-only case: 64 frames, D 128, against the native linker
-    seq64, init64 = link_problem(0, 64, cfg.max_dets)
-    s64, i64 = torch.from_numpy(seq64).cuda(), torch.from_numpy(init64).cuda()
-    got64 = _trimmed(vd.viterbi_multi_link_cuda(s64, i64))
-    t = time.perf_counter()
-    nat64 = viterbi_multi_link(list(seq64), list(init64), use_native=True)
-    native64_ms = (time.perf_counter() - t) * 1e3
-    if got64 != nat64:
-        raise AssertionError("the linker kernel disagrees with the native linker at T = 64")
-    ms64 = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(s64, i64), iters=5, warmup=1)
-    steps64, full64 = linker_dp_steps([p[0] for p in got64])
-    bound64, by64 = linker_bound_ms(seq64.shape[0], cfg.max_dets, steps64)
-    log(f"[clip] linker {seq64.shape[0]}x{cfg.max_dets}x{cfg.max_dets} (dyadic scores, {100 * float(np.isinf(seq64).mean()):.1f}% -inf): "
-        f"kernel = native linker (spans, nodes, scores); {len(got64)} paths ({sum(e > 0 for (_, e), _, _ in got64)} "
-        f"extractions), {steps64} DP steps run ({full64} from step 0); ms={ms64:.4f} native_ms={native64_ms:.2f} "
-        f"bound_ms={bound64:.6f} ({by64})")
-
-    # several slots per thread: D 1500 and 2048 on a short dyadic clip
-    for d_big in (1500, 2048):
-        seq_b, init_b = (torch.from_numpy(x).cuda() for x in link_problem(d_big, 3, d_big))
-        got_b = vd.viterbi_multi_link_cuda(seq_b, init_b)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ref_b = vd.viterbi_multi_link_ref(seq_b, init_b)
-        torch.cuda.synchronize()
-        plain_b = (time.perf_counter() - t) * 1e3
-        if not _same_paths(got_b, ref_b):
-            raise AssertionError(f"the linker kernel disagrees with its plain version at D = {d_big}")
-        ms_b = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(seq_b, init_b), iters=3, warmup=1)
-        log(f"[clip] linker 2x{d_big}x{d_big} (dyadic scores, {-(-d_big // 1024)} slots per thread at most): "
-            f"kernel = plain version (n_paths {int(got_b.n_paths)}, spans, nodes, bitwise scores); "
-            f"ms={ms_b:.4f} plain_ms={plain_b:.1f}")
+    linker_cases(cfg.max_dets)
 
     # detect_clip's tracks against the plain correlation (not the main path)
     det.model.c_tracker.corr_impl = "torch"
@@ -1789,6 +1834,53 @@ def phase_profile(label, fn, top: int = 15):
                 f"#{rank + 1:<3d} {e.key[:90]}")
 
 
+def clip_like_problem(seed, t, d):
+    """a stand-in for the clip phase's score matrices: every link live, each
+    score two saturated confidences plus psi (2.0, or 3.0 on 7.8% of links,
+    the clip's share), init scores 1.0."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    seq = (2.0 + (rng.random((t - 1, d, d)) < 0.078)).astype(np.float32)
+    return seq, np.ones(d, np.float32)
+
+
+def phase_linker(d: int = 128):
+    """the linker kernel alone (`--linker`): a clip-like 22-frame problem at
+    D d against the plain version, then linker_cases(d)."""
+    import torch
+
+    from detect_to_track_tpu_torch import viterbi_device as vd
+
+    seq, init = (torch.from_numpy(x).cuda() for x in clip_like_problem(0, CLIP_FRAMES, d))
+    got = checked_linker(seq, init)
+    t = time.perf_counter()
+    ref = vd.viterbi_multi_link_ref(seq, init)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    if not _same_paths(got, ref):
+        raise AssertionError("the linker kernel disagrees with its plain version on the clip-like problem")
+    ms = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(seq, init), iters=10, warmup=2)
+    steps, full = linker_dp_steps([p[0] for p in _trimmed(got)])
+    log(f"[linker] {CLIP_FRAMES - 1}x{d}x{d} clip-like (scores 2 or 3, all live): kernel = plain version, input "
+        f"unchanged; {int(got.n_paths)} paths, {steps} DP steps run ({full} from step 0); ms={ms:.4f} "
+        f"{linker_stream(steps, d, ms)} plain_ms={plain_ms:.1f}")
+    linker_cases(d)
+
+
+def main_linker() -> int:
+    """`python3 chip_smoke.py --linker`: the device and build phases, then
+    the linker kernel alone on linking-only cases (no model). A quick check
+    of a linker change; the full run (no arguments) is the smoke test."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(ROOT))
+    phase_device()
+    phase_build()
+    phase_linker()
+    log(f"[done] linker phases passed in {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1884,4 +1976,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank_main(Path(sys.argv[2])))
+    if sys.argv[1:2] == ["--linker"]:
+        sys.exit(main_linker())
     sys.exit(main())

@@ -1,7 +1,5 @@
 // Multi-path Viterbi tubelet extraction for Hopper (sm_90a), the whole
-// extraction in one launch: one block per clip, each thread owning the
-// detection slots tid, tid + blockDim.x, ... (one slot per thread up to
-// kMaxThreads slots, ceil(D / kMaxThreads) past it).
+// extraction in one launch: one block per clip.
 //
 // Replaces detect_to_track_tpu/viterbi_device.py::viterbi_multi_link_scan,
 // an XLA program (a fori_loop over final timesteps, a while_loop per
@@ -28,24 +26,61 @@
 // What bounds it: not bytes or operations. The clip's score matrices
 // (22 frames, D = 128: 1.4 MB) are read once from device memory, and the DP
 // does 2 flops per matrix entry per step, microseconds of card time in all.
-// The extraction is a chain of a few hundred dependent steps (each needs
-// the previous one's -inf masks), so it is latency-bound: one block walks
-// it. What the design does about that:
+// The extraction is a chain of dependent DP steps (each extraction needs the
+// nodes the previous one removed): 2,688 of them at 22 frames, each reading
+// one 64 KB matrix, all on the one SM of the one block that walks the
+// chain. A step is bound by that SM: by how fast it issues the D * D adds
+// and compares and the block's barriers, and by how fast L2 feeds it one
+// matrix. What the design does about it:
+// - the score matrices are read only. A bitmap in shared memory,
+//   removed[t][n] (T x D bits), marks the extracted nodes. Entry (t, s, v)
+//   reads as -inf when removed[t][s] (its outgoing row is masked) or
+//   removed[t + 1][v] (its incoming column is masked), and init score n when
+//   removed[0][n]: the value a masked copy would hold in every entry a later
+//   read touches (the one row such a mask leaves, the end node's row of
+//   matrix final_ts, is never read again: later extractions end at final_ts
+//   or before). So the caller's tensor needs no copy and no -inf is written.
+//   A masked column's DP result is a fresh start whatever its sources hold
+//   (every candidate is -inf + score, never > 0). A masked row's candidates
+//   are -inf or NaN, never taken by '>' except source 0's, which a scan
+//   takes unconditionally: so the scan adds each source's score with its
+//   row's mask folded in (pm, -inf for a removed row) to the raw entry, and
+//   source 0's candidate alone is the masked entry's sum. The chosen (best,
+//   src) are the masked matrix's, for any input, NaN and +inf included;
+// - each destination's sources are split over G thread groups, G the largest
+//   power of two with G * D <= kMaxThreads and 4 * G * G <= D: 4 at D 128
+//   (512 threads), 1 from D 1024. Threads run v fastest, so a warp reads 32
+//   neighbouring destinations of one source row. Group g scans its
+//   contiguous chunk in order with strict '>' (group 0 starting from source
+//   0's candidate, as the sequential scan does; the others from -inf, which
+//   every candidate a sequential scan could take beats), the partial
+//   (value, source) pairs go to shared memory, and the slot's thread in
+//   group 0 combines them in group order with strict '>': the sequential
+//   scan's result, the same single add per candidate and the first maximal
+//   index. Fewer groups cost a longer scan, more cost a longer combine and
+//   more idle warps at the barriers;
+// - where two D x D matrices fit in shared memory beside the rest (D even,
+//   D up to about 160), the DP reads them from a two-matrix ring: thread 0
+//   starts the bulk copy (TMA, cp.async.bulk, completing on an mbarrier) of
+//   step t + 1's matrix before step t scans, so the copy runs under a step's
+//   work. Past that, a thread loads the entries of 16 sources (16 / NS for
+//   NS slots) before it compares any, 16 loads in flight;
+// - the end node is the lexicographic maximum of (score, incoming column
+//   still finite, -index) over the slots, one 64-bit key a thread reduced in
+//   a tree in shared memory (a 64-bit shared-memory atomicMax is a
+//   compare-and-swap loop, slow when a thousand threads contend for one
+//   word);
 // - the DP's prefix rows depend only on earlier matrices, so the block keeps
-//   every step's scores and parents in shared memory and re-runs the DP
-//   only from the first step whose inputs the last extraction changed
-//   (max(0, start - 1)); a path that starts late re-runs a few steps, not
-//   final_ts of them. The values are the same adds on the same inputs, so
-//   the reuse is exact;
+//   every step's scores and parents and re-runs the DP only from the first
+//   step whose inputs the last extraction changed (max(0, start - 1)); a
+//   path that starts late re-runs a few steps, not final_ts of them;
 // - the per-column count of finite entries of matrix final_ts-1 is kept in
-//   shared memory and updated by the masks, so the loop condition and the
-//   end-node tie-break read no matrix;
-// - thread dst reads seq[t][src][dst] over src: the warp's loads are
-//   coalesced rows, and the source scores are a shared-memory broadcast.
-//   A thread with several slots runs each one's loop in turn, with the same
-//   adds and compares as one thread per slot.
+//   shared memory and updated with the bitmap, so the loop condition and the
+//   end-node tie-break read no matrix.
 // Parents and step scores move to a global scratch when they do not fit in
-// shared memory (long clips).
+// shared memory (long clips). Past kMaxThreads slots, G is 1 and a thread
+// owns the slots tid, tid + kMaxThreads, ..., scanning them two at a time
+// with the same adds and compares.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -62,118 +97,358 @@ namespace {
 
 constexpr int kMaxThreads = D2T_VITERBI_MAX_THREADS;
 
-// one thread per slot up to kMaxThreads slots
-int block_threads(int D) { return D < kMaxThreads ? D : kMaxThreads; }
+// thread groups that split one destination's sources: the largest power of
+// two G with G * D <= kMaxThreads and 4 * G * G <= D (a group's chunk of
+// D / G sources at least 4 G, the G partials its combine reads)
+int source_groups(int D) {
+  int g = 1;
+  while (2 * g * D <= kMaxThreads && 16 * g * g <= D) g *= 2;
+  return g;
+}
 
-// f(v) for each slot v this thread owns: v = tid alone when the block has a
-// thread per slot (kOneSlot), else tid, tid + nth, ... below D
+// G threads per slot up to kMaxThreads slots, then kMaxThreads
+int block_threads(int D) { return D <= kMaxThreads ? source_groups(D) * D : kMaxThreads; }
+
+// f(v) for each slot v this thread owns: with one slot per thread, group 0's
+// threads own them (v = tid < D); else tid, tid + nth, ... below D
 template <bool kOneSlot, typename F>
 __device__ __forceinline__ void for_each_slot(int tid, int nth, int D, F f) {
   if (kOneSlot) {
-    f(tid);
+    if (tid < D) f(tid);
     return;
   }
   for (int v = tid; v < D; v += nth) f(v);
 }
+
 // dynamic shared memory per block: Hopper's 232,448 bytes less room for the
 // kernel's few static shared variables
 constexpr size_t kMaxSmemBytes = 232448 - 1024;
 
-// shared memory: init scores (D), finite counts (D), the path (T), then, when
-// they fit, step scores and parents (T1 x D each)
+// the most shared memory the two-matrix ring may take; the CPU build of the
+// tests sets it to 0 to run the scan that reads the matrices from L2
+#ifndef D2T_VITERBI_MAX_RING_BYTES
+#define D2T_VITERBI_MAX_RING_BYTES kMaxSmemBytes
+#endif
+
+size_t bitmap_words(int T1, int D) { return static_cast<size_t>(T1 + 1) * ((D + 31) / 32); }
+
+// the groups' partial scores and sources (G x D each), when G > 1
+size_t partial_words(int D) {
+  const size_t G = source_groups(D);
+  return G > 1 ? 2 * G * D : 0;
+}
+
+// shared memory: the end-node keys (8 bytes a thread), then in 4-byte
+// words init scores (D), masked scores (2 x D), finite counts (D), the path
+// (T), the removed bitmap (T rows of ceil(D / 32) words), the partials,
+// then, when they fit, step scores and parents (T1 x D each)
 size_t base_smem_bytes(int T1, int D) {
-  return sizeof(float) * (2 * static_cast<size_t>(D) + T1 + 1);
+  return sizeof(unsigned long long) * block_threads(D) +
+         sizeof(float) * (4 * static_cast<size_t>(D) + T1 + 1 + bitmap_words(T1, D) + partial_words(D));
 }
 
 size_t table_bytes(int T1, int D) {
   return (sizeof(float) + sizeof(int)) * static_cast<size_t>(T1) * D;
 }
 
+size_t ring_bytes(int D) { return 2 * sizeof(float) * static_cast<size_t>(D) * D; }
+
+// whether the DP stages its matrices through the two-matrix ring: one slot
+// per thread, matrices of a multiple of 16 bytes at 16-byte addresses (D
+// even, `seq` 16-byte aligned: the bulk copy's terms), and the ring fits
+// beside the rest of the block's state
+bool staged(const void* seq, int T1, int D, bool tables_in_smem) {
+  return D <= kMaxThreads && D % 2 == 0 && reinterpret_cast<size_t>(seq) % 16 == 0 &&
+         ring_bytes(D) <= static_cast<size_t>(D2T_VITERBI_MAX_RING_BYTES) &&
+         ring_bytes(D) + base_smem_bytes(T1, D) + (tables_in_smem ? table_bytes(T1, D) : 0) <= kMaxSmemBytes;
+}
+
+size_t smem_bytes(const void* seq, int T1, int D, bool tables_in_smem) {
+  return base_smem_bytes(T1, D) + (tables_in_smem ? table_bytes(T1, D) : 0) +
+         (staged(seq, T1, D, tables_in_smem) ? ring_bytes(D) : 0);
+}
+
 // false for +-inf and NaN, as isfinite
 __device__ __forceinline__ bool finite(float x) { return fabsf(x) < CUDART_INF_F; }
 
-// kOneSlot: D <= kMaxThreads, one thread per slot
-template <bool kOneSlot>
+// bit n of a bitmap row
+__device__ __forceinline__ bool bit(const unsigned* row, int n) { return (row[n >> 5] >> (n & 31)) & 1u; }
+
+#ifdef __CUDACC__
+// the ring's transaction barriers (mbarrier) and bulk copies (TMA,
+// cp.async.bulk): one thread arms a barrier with the byte count and starts
+// the copy; every reader waits for the barrier's phase to complete
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\nfence.mbarrier_init.release.cluster;\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes, unsigned long long* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%2], %3;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %3, [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(smem_addr(bar)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+#endif
+
+// the DP's fold over sources [s0, s1), s0 >= 1, for NS slots v[k] of matrix
+// m (kRing: its copy in shared memory, else the matrix itself, read from
+// L2), continuing (best[k], src[k]) in source order with strict '>'. pm[s]
+// is the source's score with removed rows at -inf: a removed row's candidate
+// is then -inf or NaN, as it is with the row's masked entries, and neither
+// is ever taken by '>' (source 0's candidate, the one a scan takes
+// unconditionally, is the caller's, from the masked entry). From L2 the
+// entries of 16 / NS sources are loaded before any is compared, so 16 loads
+// are in flight per thread (a masked column's too: its result is set by the
+// caller).
+template <int NS, bool kRing>
+__device__ __forceinline__ void scan_sources(const float* __restrict__ m, const float* pm, int D, int s0, int s1,
+                                             const int (&v)[NS], float (&best)[NS], int (&src)[NS]) {
+  auto take = [&](float x, int k, int s) {
+    if (x > best[k]) {
+      best[k] = x;
+      src[k] = s;
+    }
+  };
+  int s = s0;
+  if (!kRing) {
+    constexpr int kBatch = 16 / NS;
+    for (; s + kBatch <= s1; s += kBatch) {
+      float e[kBatch][NS];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+        for (int k = 0; k < NS; ++k) e[i][k] = __ldg(m + (s + i) * static_cast<size_t>(D) + v[k]);
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+#pragma unroll
+        for (int k = 0; k < NS; ++k) take(pm[s + i] + e[i][k], k, s + i);
+    }
+  }
+#pragma unroll 8
+  for (; s < s1; ++s) {
+    const float p = pm[s];
+    for (int k = 0; k < NS; ++k) {
+      const float* a = m + s * static_cast<size_t>(D) + v[k];
+      take(p + (kRing ? *a : __ldg(a)), k, s);
+    }
+  }
+}
+
+// kOneSlot: D <= kMaxThreads, one slot per thread, G threads per slot;
+// kStaged: the DP reads its matrices from the two-matrix ring
+template <bool kOneSlot, bool kStaged>
 __global__ void __launch_bounds__(kMaxThreads)
-    viterbi_multi_link_kernel(float* seq, const float* __restrict__ init_scores,
+    viterbi_multi_link_kernel(const float* __restrict__ seq, const float* __restrict__ init_scores,
                               float* step_scores_g, int* parents_g, int* spans,
                               float* scores_out, int* nodes, int* n_paths,
                               int T1, int D) {
-  // seq is read after this block's own -inf writes: plain loads (no
-  // __restrict__ / read-only cache), ordered by __syncthreads.
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tid = threadIdx.x;  // owns the slots tid + n * nth
+  const int tid = threadIdx.x;
   const int nth = blockDim.x;
   const int T = T1 + 1;
-  float* init_s = reinterpret_cast<float*>(smem_raw);
-  int* cnt = reinterpret_cast<int*>(init_s + D);
+  const int W = (D + 31) / 32;  // bitmap words per frame
+  // with one slot per thread, thread tid scans for slot tid % D the sources
+  // [lo, hi) of group tid / D
+  const int G = kOneSlot ? nth / D : 1;
+  const int grp = kOneSlot ? tid / D : 0;
+  const int slot = tid - grp * D;
+  const int lo = grp * D / G, hi = (grp + 1) * D / G;
+  const size_t DD = static_cast<size_t>(D) * D;
+  float* ring = reinterpret_cast<float*>(smem_raw);  // 2 x D x D when staged
+  unsigned long long* keys = reinterpret_cast<unsigned long long*>(ring + (kStaged ? 2 * DD : 0));
+  float* init_s = reinterpret_cast<float*>(keys + nth);
+  float* pm_s = init_s + D;  // 2 x D: step t reads half t & 1
+  int* cnt = reinterpret_cast<int*>(pm_s + 2 * D);
   int* path = cnt + D;
+  unsigned* removed = reinterpret_cast<unsigned*>(path + T);
+  float* part_v = reinterpret_cast<float*>(removed + static_cast<size_t>(T) * W);
+  int* part_s = reinterpret_cast<int*>(part_v + (G > 1 ? G * D : 0));
   float* S = step_scores_g;
   int* P = parents_g;
   if (S == nullptr) {
-    S = reinterpret_cast<float*>(path + T);
+    S = reinterpret_cast<float*>(part_s + (G > 1 ? G * D : 0));
     P = reinterpret_cast<int*>(S + static_cast<size_t>(T1) * D);
   }
   __shared__ int s_n, s_dirty, s_start;
+  __shared__ unsigned long long s_bar[2];  // the ring halves' barriers
+  unsigned ring_phase = 0u;                // bit b: the parity half b waits for next
   const float kNegInf = -CUDART_INF_F;
-  const size_t DD = static_cast<size_t>(D) * D;
 
   for_each_slot<kOneSlot>(tid, nth, D, [&](int v) { init_s[v] = init_scores[v]; });
+  for (int i = tid; i < T * W; i += nth) removed[i] = 0u;
   if (tid == 0) {
     s_n = 0;
     s_dirty = 0;  // DP steps [0, s_dirty) are valid
+    if (kStaged) {
+      mbar_init(&s_bar[0]);
+      mbar_init(&s_bar[1]);
+    }
   }
   __syncthreads();
 
-  for (int final_ts = T1; final_ts >= 1; --final_ts) {
-    // finite entries in this thread's columns of the incoming matrix
-    bool any = false;
-    for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
-      const float* col = seq + (final_ts - 1) * DD + v;
-      int c = 0;
-#pragma unroll 16
-      for (int s = 0; s < D; ++s) c += finite(col[s * static_cast<size_t>(D)]) ? 1 : 0;
-      cnt[v] = c;
-      any = any || c > 0;
-    });
-    while (__syncthreads_or(any)) {
-      const int t0 = s_dirty;
-      __syncthreads();  // every thread has read s_dirty before thread 0 moves it
+  // staged: thread 0 copies matrix t into ring half t & 1 (one bulk copy)
+  auto fill = [&](int t) {
+    bulk_copy(ring + (t & 1) * DD, seq + t * DD, static_cast<unsigned>(DD * sizeof(float)), &s_bar[t & 1]);
+  };
 
-      // the DP over the steps whose inputs changed
-      for (int t = t0; t < final_ts; ++t) {
-        const float* prev = t == 0 ? init_s : S + static_cast<size_t>(t - 1) * D;
+  for (int final_ts = T1; final_ts >= 1; --final_ts) {
+    // finite entries of the incoming matrix's live rows, per live column
+    bool any = false;
+    {
+      const float* m = seq + (final_ts - 1) * DD;
+      const unsigned* rows = removed + (final_ts - 1) * W;
+      const unsigned* cols = removed + final_ts * W;
+      auto count = [&](int v, int s0, int s1) {
+        int c = 0;
+#pragma unroll 8
+        for (int s = s0; s < s1; ++s)
+          c += !bit(rows, s) && finite(__ldg(m + s * static_cast<size_t>(D) + v)) ? 1 : 0;
+        return c;
+      };
+      if (kOneSlot) {
+        int c = bit(cols, slot) ? 0 : count(slot, lo, hi);
+        if (G > 1) {
+          part_s[tid] = c;
+          __syncthreads();
+        }
+        if (grp == 0) {
+          for (int k = 1; k < G; ++k) c += part_s[k * D + slot];
+          cnt[slot] = c;
+          any = c > 0;
+        }
+      } else {
+        for (int v = tid; v < D; v += nth) {
+          cnt[v] = bit(cols, v) ? 0 : count(v, 0, D);
+          any = any || cnt[v] > 0;
+        }
+      }
+    }
+    while (__syncthreads_or(any)) {
+      // the DP re-runs steps [t0, final_ts): none when the last path was a
+      // single node at final_ts + 1. Step t's fold reads pm_s[t & 1]: step
+      // t - 1's scores with the rows removed at frame t at -inf (the init
+      // scores at t = 0, already masked). Staged: thread 0 starts the copy
+      // of step t + 1's matrix into the ring's other half before step t
+      // scans, and every thread waits for its step's copy: one copy per wait
+      const int t0 = s_dirty;
+      if (t0 > 0 && t0 < final_ts)
         for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
-          const float* m = seq + t * DD + v;
-          float best = prev[0] + m[0];
-          int src = 0;
-#pragma unroll 16
-          for (int s = 1; s < D; ++s) {
-            const float x = prev[s] + m[s * static_cast<size_t>(D)];
-            if (x > best) {
-              best = x;
-              src = s;
+          pm_s[(t0 & 1) * D + v] = bit(removed + t0 * W, v) ? kNegInf : S[static_cast<size_t>(t0 - 1) * D + v];
+        });
+      __syncthreads();  // every thread has read s_dirty before thread 0 moves it
+      if (kStaged && tid == 0 && t0 < final_ts) fill(t0);
+
+      for (int t = t0; t < final_ts; ++t) {
+        const float* pm = t == 0 ? init_s : pm_s + (t & 1) * D;
+        const float* m = seq + t * DD;
+        const unsigned* cols = removed + (t + 1) * W;
+        // source 0's candidate for slot v as the sequential scan takes it:
+        // the source's score plus its masked entry
+        auto first = [&](const float* mat, int v, bool masked) {
+          const float p0 = t == 0 ? init_s[0] : S[static_cast<size_t>(t - 1) * D];
+          return p0 + (bit(removed + t * W, 0) || masked ? kNegInf : (kStaged ? mat[v] : __ldg(mat + v)));
+        };
+        auto store = [&](int v, bool masked, float best, int src) {
+          const bool fresh = masked || !(best > 0.f);
+          const float score = fresh ? 0.f : best;
+          P[static_cast<size_t>(t) * D + v] = fresh ? -1 : src;
+          S[static_cast<size_t>(t) * D + v] = score;
+          if (t + 1 < final_ts) pm_s[((t + 1) & 1) * D + v] = bit(cols, v) ? kNegInf : score;
+        };
+        if (kOneSlot) {
+          if (kStaged) {
+            if (tid == 0 && t + 1 < final_ts) fill(t + 1);
+            mbar_wait(&s_bar[t & 1], (ring_phase >> (t & 1)) & 1u);
+            ring_phase ^= 1u << (t & 1);
+          }
+          const float* mat = kStaged ? ring + (t & 1) * DD : m;
+          // a masked column is scanned too (its warp scans for the others)
+          // and its result set by store
+          const bool masked = bit(cols, slot);
+          const int v[1] = {slot};
+          float best[1] = {kNegInf};
+          int src[1] = {-1};
+          int s = lo;
+          if (s == 0) {
+            best[0] = first(mat, slot, masked);
+            src[0] = 0;
+            s = 1;
+          }
+          scan_sources<1, kStaged>(mat, pm, D, s, hi, v, best, src);
+          if (G > 1) {
+            part_v[tid] = best[0];
+            part_s[tid] = src[0];
+            __syncthreads();
+          }
+          if (grp == 0) {
+            for (int k = 1; k < G; ++k) {
+              const float b = part_v[k * D + slot];
+              if (b > best[0]) {
+                best[0] = b;
+                src[0] = part_s[k * D + slot];
+              }
+            }
+            store(slot, masked, best[0], src[0]);
+          }
+        } else {
+          // the slots two at a time, sharing each source's score
+          for (int v0 = tid; v0 < D; v0 += 2 * nth) {
+            if (v0 + nth < D) {
+              const int v[2] = {v0, v0 + nth};
+              const bool masked[2] = {bit(cols, v[0]), bit(cols, v[1])};
+              float best[2] = {first(m, v[0], masked[0]), first(m, v[1], masked[1])};
+              int src[2] = {0, 0};
+              if (!(masked[0] && masked[1])) scan_sources<2, false>(m, pm, D, 1, D, v, best, src);
+              store(v[0], masked[0], best[0], src[0]);
+              store(v[1], masked[1], best[1], src[1]);
+            } else {
+              const int v[1] = {v0};
+              const bool masked[1] = {bit(cols, v0)};
+              float best[1] = {first(m, v0, masked[0])};
+              int src[1] = {0};
+              if (!masked[0]) scan_sources<1, false>(m, pm, D, 1, D, v, best, src);
+              store(v0, masked[0], best[0], src[0]);
             }
           }
-          const bool fresh = !(best > 0.f);
-          P[static_cast<size_t>(t) * D + v] = fresh ? -1 : src;
-          S[static_cast<size_t>(t) * D + v] = fresh ? 0.f : best;
-        });
+        }
+        __syncthreads();
+      }
+
+      // end node: the lexicographic maximum of the key (score, incoming
+      // column still finite, -index); the scores are >= 0 and never NaN, so
+      // their bits order as the values do. Each thread's slots first, then a
+      // tree over the slot-owning threads' keys in shared memory
+      const float* e = S + static_cast<size_t>(final_ts - 1) * D;
+      const int owners = nth < D ? nth : D;
+      unsigned long long key = 0ull;
+      for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
+        const unsigned long long k = static_cast<unsigned long long>(__float_as_uint(e[v])) << 32 |
+                                     (cnt[v] > 0 ? 0x80000000u : 0u) | static_cast<unsigned>(0x7fffffff - v);
+        key = k > key ? k : key;
+      });
+      if (tid < owners) keys[tid] = key;
+      __syncthreads();
+      int half = 1;
+      while (2 * half < owners) half *= 2;
+      for (; half > 0; half /= 2) {
+        if (tid < half && tid + half < owners) keys[tid] = keys[tid] > keys[tid + half] ? keys[tid] : keys[tid + half];
         __syncthreads();
       }
 
       if (tid == 0) {
-        // end node: first maximal score with a finite incoming entry, else
-        // the first maximal score (the end scores are all >= 0)
-        const float* e = S + static_cast<size_t>(final_ts - 1) * D;
-        float mx = e[0];
-        for (int d = 1; d < D; ++d) mx = e[d] > mx ? e[d] : mx;
-        int end = -1;
-        for (int d = 0; d < D && end < 0; ++d)
-          if (e[d] == mx && cnt[d] > 0) end = d;
-        for (int d = 0; d < D && end < 0; ++d)
-          if (e[d] == mx) end = d;
-
+        const int end = 0x7fffffff - static_cast<int>(keys[0] & 0x7fffffffull);
         for (int ts = 0; ts < T; ++ts) path[ts] = -1;
         path[final_ts] = end;
         int node = end, start = final_ts;
@@ -184,8 +459,8 @@ __global__ void __launch_bounds__(kMaxThreads)
           node = p;
           start = t;
         }
-        // each extraction consumes node (final_ts, end) -- its column goes
-        // to -inf and the tie-break never picks an all--inf column while a
+        // each extraction consumes node (final_ts, end) -- its column is
+        // masked and the tie-break never picks an all--inf column while a
         // finite one exists -- so there are at most T1 * D of them, plus D
         // singles: the T * D rows always suffice. The guard keeps the
         // writes in bounds regardless.
@@ -205,24 +480,30 @@ __global__ void __launch_bounds__(kMaxThreads)
       __syncthreads();
 
       const int start = s_start;
-      // outgoing: row path[ts] of matrix ts, ts in [start, final_ts)
-      for (int ts = start; ts < final_ts; ++ts) {
-        float* row = seq + ts * DD + static_cast<size_t>(path[ts]) * D;
-        for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
-          if (ts == final_ts - 1 && finite(row[v])) --cnt[v];
-          row[v] = kNegInf;
-        });
+      // the path's row of matrix final_ts - 1 leaves the counts: one less
+      // in each column where its entry was finite and neither it nor the
+      // column was masked yet
+      if (start < final_ts) {
+        const int r = path[final_ts - 1];
+        if (!bit(removed + (final_ts - 1) * W, r)) {
+          const float* row = seq + (final_ts - 1) * DD + static_cast<size_t>(r) * D;
+          const unsigned* cols = removed + final_ts * W;
+          for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
+            if (!bit(cols, v) && finite(__ldg(row + v))) --cnt[v];
+          });
+        }
       }
       __syncthreads();
-      // incoming: column path[ts] of matrix ts - 1, ts in [max(start, 1), final_ts]
-      for (int ts = start > 0 ? start : 1; ts <= final_ts; ++ts)
-        for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
-          seq[(ts - 1) * DD + static_cast<size_t>(v) * D + path[ts]] = kNegInf;
-        });
+      // remove the path's nodes: row path[ts] of matrix ts and column
+      // path[ts] of matrix ts - 1 now read as -inf, and init score path[0]
+      for (int ts = start + tid; ts <= final_ts; ts += nth) {
+        removed[ts * W + (path[ts] >> 5)] |= 1u << (path[ts] & 31);
+        if (ts == 0) init_s[path[0]] = kNegInf;
+      }
+      const int end = path[final_ts];
       any = false;
       for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
-        if (v == path[final_ts]) cnt[v] = 0;
-        if (start == 0 && v == path[0]) init_s[v] = kNegInf;
+        if (v == end) cnt[v] = 0;
         any = any || cnt[v] > 0;
       });
       // the loop condition's __syncthreads_or orders these writes
@@ -262,8 +543,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 extern "C" {
 
-// 1 when a clip's init scores, counts and path fit in shared memory (the
-// kernel's only limit on D), else 0.
+// 1 when a clip's init scores, counts, path, removed bitmap and partials fit
+// in shared memory (the kernel's only limit on D), else 0.
 int d2t_viterbi_fits(int T1, int D) { return base_smem_bytes(T1, D) <= kMaxSmemBytes ? 1 : 0; }
 
 // 1 when a clip's step scores and parents fit in shared memory beside the
@@ -272,16 +553,15 @@ int d2t_viterbi_tables_in_smem(int T1, int D) {
   return base_smem_bytes(T1, D) + table_bytes(T1, D) <= kMaxSmemBytes ? 1 : 0;
 }
 
-// seq: (T1, D, D) float32 scratch copy of the score matrices, masked in
-// place. init: (D,) float32. step_scores / parents: (T1, D) float32 / int32
-// global scratch, or both null when d2t_viterbi_tables_in_smem says they
-// fit in shared memory. Outputs, every element written: spans (T*D, 2)
-// int32, scores (T*D,) float32, nodes (T*D, T) int32 (-1 outside a path's
-// span and in unused rows), n_paths (1,) int32, with T = T1 + 1. One block
-// of min(D, kMaxThreads) threads on `stream`; any D whose init scores,
-// counts and path fit in shared memory (D up to about 28,000). Returns
-// cudaGetLastError() (0 on success).
-int d2t_viterbi_multi_link(void* seq, const void* init, void* step_scores,
+// seq: (T1, D, D) float32 score matrices, read only. init: (D,) float32.
+// step_scores / parents: (T1, D) float32 / int32 global scratch, or both
+// null when d2t_viterbi_tables_in_smem says they fit in shared memory.
+// Outputs, every element written: spans (T*D, 2) int32, scores (T*D,)
+// float32, nodes (T*D, T) int32 (-1 outside a path's span and in unused
+// rows), n_paths (1,) int32, with T = T1 + 1. One block of block_threads(D)
+// threads on `stream`; any D whose per-slot state fits in shared memory (D
+// up to about 27,000). Returns cudaGetLastError() (0 on success).
+int d2t_viterbi_multi_link(const void* seq, const void* init, void* step_scores,
                            void* parents, void* spans, void* scores,
                            void* nodes, void* n_paths, int T1, int D,
                            void* stream) {
@@ -290,14 +570,17 @@ int d2t_viterbi_multi_link(void* seq, const void* init, void* step_scores,
   const bool in_smem = step_scores == nullptr;
   if (in_smem && !d2t_viterbi_tables_in_smem(T1, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = base_smem_bytes(T1, D) + (in_smem ? table_bytes(T1, D) : 0);
+  const size_t smem = smem_bytes(seq, T1, D, in_smem);
   if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = D <= kMaxThreads ? viterbi_multi_link_kernel<true> : viterbi_multi_link_kernel<false>;
+  const bool ring = staged(seq, T1, D, in_smem);
+  auto kernel = ring               ? viterbi_multi_link_kernel<true, true>
+                : D <= kMaxThreads ? viterbi_multi_link_kernel<true, false>
+                                   : viterbi_multi_link_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<1, block_threads(D), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(seq), static_cast<const float*>(init),
+      static_cast<const float*>(seq), static_cast<const float*>(init),
       static_cast<float*>(step_scores), static_cast<int*>(parents),
       static_cast<int*>(spans), static_cast<float*>(scores),
       static_cast<int*>(nodes), static_cast<int*>(n_paths), T1, D);

@@ -11,9 +11,11 @@ a padded slot over a real one and results trim to the host linker's
 
 The extraction is `viterbi_multi_link_scan`: on a CUDA tensor it launches
 one hand-written kernel (`ops/csrc/viterbi.cu`, `viterbi_multi_link_cuda`)
-that runs the whole extraction in one block; on a CPU tensor it runs the
-plain version, `viterbi_multi_link_ref`, a transcription of the JAX
-program with Python loops. A CUDA tensor launches the kernel or raises.
+that runs the whole extraction in one block and reads the score matrices
+without writing them (a bitmap of removed nodes stands for the plain
+version's -inf masks); on a CPU tensor it runs the plain version,
+`viterbi_multi_link_ref`, a transcription of the JAX program with Python
+loops. A CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -224,11 +226,13 @@ def _tables_in_smem(lib: ctypes.CDLL, t1: int, d: int) -> bool:
 
 def viterbi_multi_link_cuda(score_seq: torch.Tensor, init_scores: torch.Tensor) -> DevicePaths:
     """launch the linker kernel (ops/csrc/viterbi.cu) on (T-1, D, D) and
-    (D,) float32 CUDA tensors: the whole extraction in one block of
-    min(D, 1024) threads (ceil(D / 1024) slots each), on a scratch copy of
-    score_seq. D is bounded only by the per-slot shared memory (about
-    28,000 slots). Returns DevicePaths on the card without waiting for it.
-    Counts each launch in `viterbi_multi_link_cuda.launches`."""
+    (D,) float32 CUDA tensors: the whole extraction in one block (G threads
+    per slot up to 1024 threads, G = 4 at D 128; ceil(D / 1024) slots a
+    thread past 1024 slots). The kernel reads score_seq and init_scores
+    and writes neither, so they are passed as they are (made contiguous).
+    D is bounded only by the per-slot shared memory (about 27,000 slots).
+    Returns DevicePaths on the card without waiting for it. Counts each
+    launch in `viterbi_multi_link_cuda.launches`."""
     if not (score_seq.is_cuda and init_scores.is_cuda) or score_seq.device != init_scores.device:
         raise ValueError(
             f"the linker kernel needs CUDA tensors on one device, got {score_seq.device} and {init_scores.device}"
@@ -246,7 +250,7 @@ def viterbi_multi_link_cuda(score_seq: torch.Tensor, init_scores: torch.Tensor) 
     dev = score_seq.device
     t = t1 + 1
     cap = t * d
-    seq = score_seq.contiguous().clone()  # the kernel masks it in place
+    seq = score_seq.contiguous()
     init = init_scores.contiguous()
     tables = (None, None)
     if not _tables_in_smem(lib, t1, d):

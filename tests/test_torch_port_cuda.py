@@ -175,19 +175,28 @@ def _assert_same_paths(got, ref):
 
 
 # (seed, T, D): D a warp multiple and not, one slot, 1024 slots (the most
-# threads a block takes), the chip clip's 22 x 128, and 1500 and 2048 slots
-# (two slots for some threads or for all)
-LINK_CASES = [(0, 4, 6), (1, 8, 32), (2, 22, 128), (3, 12, 100), (4, 6, 1), (5, 3, 1024), (8, 3, 1500), (9, 3, 2048)]
+# threads a block takes), the chip clip's 22 x 128 (4 source groups, the
+# two-matrix ring), 22 frames at D 33 and 100 (2 and 4 groups, the block
+# short of 1024 threads; D 33 odd: no ring), and 1500 and 2048 slots (two
+# slots for some threads or for all)
+LINK_CASES = [(0, 4, 6), (1, 8, 32), (2, 22, 128), (3, 12, 100), (4, 6, 1), (5, 3, 1024), (8, 3, 1500), (9, 3, 2048),
+              (10, 22, 33), (11, 22, 100)]
 
 
 @pytest.mark.parametrize("dyadic", [False, True], ids=["uniform", "dyadic"])
 @pytest.mark.parametrize("case", LINK_CASES, ids=str)
 def test_linker_kernel_matches_plain(cuda, case, dyadic):
+    """the kernel's paths are the plain version's, bitwise, and the caller's
+    score matrices and init scores are unchanged after the launch (the
+    kernel reads them in place, without a copy)."""
     seq, init = (torch.from_numpy(x).to(cuda) for x in _link_problem(*case, dyadic))
+    seq_before, init_before = seq.clone(), init.clone()
     before = viterbi_device.viterbi_multi_link_cuda.launches
     got = viterbi_device.viterbi_multi_link_scan(seq, init)
     torch.cuda.synchronize()
     assert viterbi_device.viterbi_multi_link_cuda.launches == before + 1
+    assert torch.equal(seq.view(torch.int32), seq_before.view(torch.int32))
+    assert torch.equal(init.view(torch.int32), init_before.view(torch.int32))
     _assert_same_paths(got, viterbi_device.viterbi_multi_link_ref(seq, init))
     assert int(got.n_paths) > 0
 

@@ -196,33 +196,63 @@ def test_multi_link_ref_time_padding_is_noop(seed):
     np.testing.assert_array_equal(pnodes[:n, : seq.shape[0] + 1], nodes[:n])
 
 
-def _kernel_replay(seq, init):
-    """the linker kernel's schedule (ops/csrc/viterbi.cu) in numpy: step
-    scores and parents kept across extractions and the DP re-run only from
-    the first step whose inputs changed, per-column finite counts kept by
-    the masks (rows first, then columns). The same f32 adds in the same
-    order as the plain version, so its result must equal it bitwise."""
-    seq, init = seq.copy(), init.copy()
+def _source_groups(d, max_threads=1024):
+    """the kernel's source_groups: the largest power of two G with
+    G * d <= max_threads and 4 * G * G <= d."""
+    g = 1
+    while 2 * g * d <= max_threads and 16 * g * g <= d:
+        g *= 2
+    return g
+
+
+def _kernel_replay(seq, init, groups=1):
+    """the linker kernel's schedule (ops/csrc/viterbi.cu) in numpy: read-only
+    score matrices and a removed-node bitmap (entry (t, s, v) reads -inf when
+    node (t, s) or (t + 1, v) is removed, a removed column's DP result is a
+    fresh start), each destination's sources split into `groups` contiguous
+    chunks scanned in order with strict '>' (the first chunk from source 0's
+    candidate, the others from -inf) and combined in chunk order with strict
+    '>', step scores and parents kept across extractions and the DP re-run
+    only from the first step whose inputs changed, the end node as the
+    maximum of the 64-bit key (score bits, finite incoming column, -index),
+    per-column finite counts kept with the bitmap. The same f32 adds as the
+    plain version, so its result must equal it bitwise."""
+    init = init.copy()
     t1, d, _ = seq.shape
     t = t1 + 1
+    neg_inf = np.float32(-np.inf)
+    removed = np.zeros((t, d), bool)
     step = np.zeros((t1, d), np.float32)
     par = np.zeros((t1, d), np.int64)
+    bounds = [g * d // groups for g in range(groups + 1)]
     spans, scores, nodes = [], [], []
     dirty = 0
     for final_ts in range(t1, 0, -1):
-        cnt = np.isfinite(seq[final_ts - 1]).sum(0)
+        live = np.isfinite(seq[final_ts - 1]) & ~removed[final_ts - 1][:, None]
+        cnt = np.where(removed[final_ts], 0, live.sum(0))
         while (cnt > 0).any():
             for s in range(dirty, final_ts):
                 prev = init if s == 0 else step[s - 1]
-                cand = prev[:, None] + seq[s]
-                src = np.argmax(cand, 0)
-                best = cand[src, np.arange(d)]
-                fresh = ~(best > 0)
+                with np.errstate(invalid="ignore"):
+                    cand = prev[:, None] + np.where(removed[s][:, None], neg_inf, seq[s])  # (src, dst)
+                for g in range(groups):
+                    lo, hi = bounds[g], bounds[g + 1]
+                    gb, gs = (cand[0].copy(), np.zeros(d, np.int64)) if lo == 0 else (np.full(d, neg_inf), np.full(d, -1))
+                    for i in range(max(lo, 1), hi):
+                        take = cand[i] > gb
+                        gb, gs = np.where(take, cand[i], gb), np.where(take, i, gs)
+                    if g == 0:
+                        best, src = gb, gs
+                    else:
+                        take = gb > best
+                        best, src = np.where(take, gb, best), np.where(take, gs, src)
+                fresh = removed[s + 1] | ~(best > 0)
                 par[s] = np.where(fresh, -1, src)
                 step[s] = np.where(fresh, np.float32(0), best)
             e = step[final_ts - 1]
-            tied = e == e.max()
-            end = int(np.argmax(tied & (cnt > 0))) if (tied & (cnt > 0)).any() else int(np.argmax(tied))
+            idx = np.arange(d, dtype=np.uint64)
+            key = (e.view(np.uint32).astype(np.uint64) << 32) | ((cnt > 0).astype(np.uint64) << 31) | (0x7FFFFFFF - idx)
+            end = int(0x7FFFFFFF - (int(key.max()) & 0x7FFFFFFF))
             path = np.full(t, -1)
             path[final_ts] = end
             start = final_ts
@@ -235,15 +265,12 @@ def _kernel_replay(seq, init):
             scores.append(e[end])
             nodes.append(path)
             dirty = max(start - 1, 0)
-            for s in range(start, final_ts):
-                if s == final_ts - 1:
-                    cnt -= np.isfinite(seq[s, path[s]])
-                seq[s, path[s]] = -np.inf
-            for s in range(max(start, 1), final_ts + 1):
-                seq[s - 1, :, path[s]] = -np.inf
-            cnt[path[final_ts]] = 0
+            if start < final_ts and not removed[final_ts - 1, path[final_ts - 1]]:
+                cnt -= ~removed[final_ts] & np.isfinite(seq[final_ts - 1, path[final_ts - 1]])
+            removed[np.arange(start, final_ts + 1), path[start : final_ts + 1]] = True
             if start == 0:
-                init[path[0]] = -np.inf
+                init[path[0]] = neg_inf
+            cnt[end] = 0
     for node in np.nonzero(np.isfinite(init))[0]:
         spans.append((0, 0))
         scores.append(init[node])
@@ -255,7 +282,9 @@ def _kernel_replay(seq, init):
 def test_kernel_schedule_matches_plain(case):
     """the replayed kernel schedule on padded random problems, with dyadic
     scores (many exact ties) and exact-0.0 links, against the plain
-    version."""
+    version: with the kernel's source groups, with one group (the
+    sequential scan), with 3 uneven chunks and with one source per chunk.
+    The input matrices stay as they were."""
     seed, T, d = case
     rng = np.random.RandomState(seed)
     dims = rng.randint(d // 2, d + 1, size=T)
@@ -265,24 +294,31 @@ def test_kernel_schedule_matches_plain(case):
     seq[rng.rand(*seq.shape) < 0.2] = -np.inf
     ini = np.full(d, -np.inf, np.float32)
     ini[: dims[0]] = rng.randint(0, 4, dims[0]) / 4.0
-    n, spans, scores, nodes = _kernel_replay(seq, ini)
     rn, rspans, rscores, rnodes = _device_paths(tvd.viterbi_multi_link_ref(torch.from_numpy(seq), torch.from_numpy(ini)))
-    assert n == rn
-    np.testing.assert_array_equal(spans, rspans[:n])
-    np.testing.assert_array_equal(scores.view(np.int32), rscores[:n].view(np.int32))
-    np.testing.assert_array_equal(nodes, rnodes[:n])
+    before = seq.tobytes()
+    for groups in sorted({_source_groups(d), 1, 3, d}):
+        n, spans, scores, nodes = _kernel_replay(seq, ini, groups)
+        assert n == rn
+        np.testing.assert_array_equal(spans, rspans[:n])
+        np.testing.assert_array_equal(scores.view(np.int32), rscores[:n].view(np.int32))
+        np.testing.assert_array_equal(nodes, rnodes[:n])
+    assert seq.tobytes() == before
 
 
 # The linker kernel's own source, compiled for the CPU: a CUDA block becomes
-# min(D, D2T_VITERBI_MAX_THREADS) std::threads, __syncthreads a
-# std::barrier, shared memory a buffer. It runs the kernel's code, barriers
-# and shared state included, on CPU threads (warp-level behaviour aside: the
-# kernel has none).
+# block_threads(D) std::threads, __syncthreads a std::barrier, shared memory
+# a buffer and static variables, __ldg a plain load, the ring's bulk copy
+# (TMA) a memcpy that then completes its transaction barrier's phase (a
+# counter), a wait on that barrier a blocking wait for the phase's parity to
+# change. It runs the kernel's code, barriers and shared state included, on
+# CPU threads (warp-level behaviour aside: the kernel has none).
 _CUDA_ON_CPU = r"""
 #include <atomic>
 #include <barrier>
+#include <bit>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <thread>
 #include <vector>
 struct dim3 { int x = 0, y = 0, z = 0; };
@@ -301,8 +337,25 @@ inline int __syncthreads_or(int p) {
   g_bar->arrive_and_wait();
   return r;
 }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline unsigned __float_as_uint(float x) { return std::bit_cast<unsigned>(x); }
+// an mbarrier with one arrival a phase: a bulk copy (TMA) is a memcpy that
+// then completes the phase (a counter); a wait blocks until the phase's
+// parity changes
+inline void mbar_init(unsigned long long* bar) { std::atomic_ref<unsigned long long>(*bar).store(0); }
+inline void bulk_copy(float* dst, const float* src, unsigned bytes, unsigned long long* bar) {
+  std::memcpy(dst, src, bytes);
+  std::atomic_ref<unsigned long long> phase(*bar);
+  phase.fetch_add(1);
+  phase.notify_all();
+}
+inline void mbar_wait(unsigned long long* bar, unsigned parity) {
+  std::atomic_ref<unsigned long long> phase(*bar);
+  for (unsigned long long v = phase.load(); (v & 1u) == parity; v = phase.load()) phase.wait(v);
+}
 #define __global__
 #define __device__
+#define __shared__ static
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
@@ -311,9 +364,11 @@ inline unsigned char smem_raw[1 << 20];
 """
 
 _CPU_LAUNCH = r"""
-extern "C" int cpu_launch(float* seq, const float* init, float* S, int* P, int* spans, float* scores,
+extern "C" int cpu_launch(const float* seq, const float* init, float* S, int* P, int* spans, float* scores,
                           int* nodes, int* n_paths, int T1, int D) {
+  const bool ring = staged(seq, T1, D, S == nullptr);
   const int nth = block_threads(D);
+  if (smem_bytes(seq, T1, D, S == nullptr) > sizeof(smem_raw)) return 1;
   std::barrier<> bar(nth);
   g_bar = &bar;
   blockDim.x = nth;
@@ -321,25 +376,30 @@ extern "C" int cpu_launch(float* seq, const float* init, float* S, int* P, int* 
   for (int i = 0; i < nth; ++i)
     threads.emplace_back([=] {
       threadIdx.x = i;
-      if (D <= kMaxThreads)
-        viterbi_multi_link_kernel<true>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
+      if (ring)
+        viterbi_multi_link_kernel<true, true>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
+      else if (D <= kMaxThreads)
+        viterbi_multi_link_kernel<true, false>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
       else
-        viterbi_multi_link_kernel<false>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
+        viterbi_multi_link_kernel<false, false>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
     });
   for (auto& t : threads) t.join();
   return 0;
 }
+
+extern "C" int cpu_block_threads(int D) { return block_threads(D); }
+extern "C" int cpu_staged(int T1, int D, int tables_in_smem) { return staged(nullptr, T1, D, tables_in_smem); }
 """
 
 
-def _linker_kernel_on_cpu(out, max_threads=None):
+def _linker_kernel_on_cpu(out, max_threads=None, max_ring_bytes=None):
     """ops/csrc/viterbi.cu built for CPU threads into `out`, with the
-    kernel's default thread cap or `max_threads`."""
+    kernel's default thread cap or `max_threads`, and its default ring
+    budget or `max_ring_bytes` (0: the DP reads the matrices directly)."""
     src = (Path(tvd.__file__).parent / "ops" / "csrc" / "viterbi.cu").read_text()
     edits = [
         ("#include <cuda_runtime.h>\n#include <math_constants.h>\n", _CUDA_ON_CPU),
         ("  extern __shared__ __align__(16) unsigned char smem_raw[];\n", ""),
-        ("__shared__ int s_n, s_dirty, s_start;", "static int s_n, s_dirty, s_start;"),
         ("namespace {", ""),
         ("}  // namespace", ""),
     ]
@@ -351,16 +411,28 @@ def _linker_kernel_on_cpu(out, max_threads=None):
     cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-o", str(out / "lib.so"), str(out / "viterbi_cpu.cpp")]
     if max_threads is not None:
         cmd.append(f"-DD2T_VITERBI_MAX_THREADS={max_threads}")
+    if max_ring_bytes is not None:
+        cmd.append(f"-DD2T_VITERBI_MAX_RING_BYTES={max_ring_bytes}")
     proc = subprocess.run(cmd + ["-lpthread"], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out / "lib.so"))
     lib.cpu_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int]
+    lib.cpu_block_threads.argtypes = [ctypes.c_int]
+    lib.cpu_staged.argtypes = [ctypes.c_int] * 3
     return lib
 
 
 @pytest.fixture(scope="module")
 def linker_kernel_on_cpu(tmp_path_factory):
     return _linker_kernel_on_cpu(tmp_path_factory.mktemp("linker_cpu"))
+
+
+@pytest.fixture(scope="module")
+def linker_kernel_direct_reads(tmp_path_factory):
+    """the kernel built without the two-matrix ring: its one-slot DP scan
+    reads the matrices from L2, as on the card where the ring does not fit
+    (D past about 160)."""
+    return _linker_kernel_on_cpu(tmp_path_factory.mktemp("linker_cpu_l2"), max_ring_bytes=0)
 
 
 @pytest.fixture(scope="module")
@@ -380,17 +452,15 @@ def _run_cpu_kernel(lib, seq, ini, tables_in_smem=True):
     nodes = np.full((t1 + 1) * dd * (t1 + 1), 7, np.int32)
     n = np.zeros(1, np.int32)
     ptrs = [None, None] if tables_in_smem else [x.ctypes.data for x in tables]
-    lib.cpu_launch(work.ctypes.data, ini.ctypes.data, *ptrs, spans.ctypes.data, scores.ctypes.data,
-                   nodes.ctypes.data, n.ctypes.data, t1, dd)
+    rc = lib.cpu_launch(work.ctypes.data, ini.ctypes.data, *ptrs, spans.ctypes.data, scores.ctypes.data,
+                        nodes.ctypes.data, n.ctypes.data, t1, dd)
+    assert rc == 0
     return int(n[0]), spans.reshape(-1, 2), scores, nodes.reshape(-1, t1 + 1)
 
 
-@pytest.mark.parametrize("case", [(0, 4, 6), (1, 8, 32), (3, 12, 20), (4, 6, 1), (9, 10, 33), (8, 2, 5)], ids=str)
-def test_linker_kernel_source_on_cpu_threads(linker_kernel_on_cpu, case):
-    """ops/csrc/viterbi.cu run on CPU threads (one per slot), with its step
-    tables in shared memory and in a global scratch, on uniform and dyadic
-    padded problems and the exact-0.0 case: the plain version's paths, bitwise."""
-    seed, T, d = case
+def _link_problems(seed, T, d):
+    """uniform and dyadic padded problems of T frames and d slots, and the
+    exact-0.0 case."""
     rng = np.random.RandomState(seed)
     problems = []
     for dyadic in (False, True):
@@ -403,14 +473,85 @@ def test_linker_kernel_source_on_cpu_threads(linker_kernel_on_cpu, case):
         ini[: dims[0]] = rng.randint(0, 4, dims[0]) / 4.0 if dyadic else rng.rand(dims[0])
         problems.append((seq, ini))
     problems.append((np.array([[[-np.inf, 0.0], [-np.inf, -np.inf]]], np.float32), np.zeros(2, np.float32)))
-    for seq, ini in problems:
+    return problems
+
+
+# (seed, T, D) at the default cap of 1024 threads: G = 1 source group at D
+# 1, 5 and 6, 2 at D 20, 32 and 33, 4 at D 100 (400 threads: G * D short of
+# the cap, D % 4 != 0)
+@pytest.mark.parametrize(
+    "case", [(0, 4, 6), (1, 8, 32), (3, 12, 20), (4, 6, 1), (9, 10, 33), (8, 2, 5), (11, 3, 100)], ids=str
+)
+def test_linker_kernel_source_on_cpu_threads(linker_kernel_on_cpu, case):
+    """ops/csrc/viterbi.cu run on CPU threads (G per slot; at even D the DP
+    staged through the two-matrix ring, at odd D read from the matrices),
+    with its step tables in shared memory and in a global scratch, on
+    uniform and dyadic padded problems and the exact-0.0 case: the plain
+    version's paths, bitwise."""
+    _assert_cpu_kernel_matches_plain(linker_kernel_on_cpu, *case, ring=True)
+
+
+def _assert_cpu_kernel_matches_plain(lib, seed, T, d, ring):
+    assert lib.cpu_block_threads(d) == _source_groups(d) * d
+    assert all(lib.cpu_staged(T - 1, d, in_smem) == (ring and d % 2 == 0) for in_smem in (0, 1))
+    for seq, ini in _link_problems(seed, T, d):
         ref = _device_paths(tvd.viterbi_multi_link_ref(torch.from_numpy(seq), torch.from_numpy(ini)))
         for tables_in_smem in (True, False):
-            n, spans, scores, nodes = _run_cpu_kernel(linker_kernel_on_cpu, seq, ini, tables_in_smem)
+            n, spans, scores, nodes = _run_cpu_kernel(lib, seq, ini, tables_in_smem)
             assert n == ref[0]
             np.testing.assert_array_equal(spans, ref[1])
             np.testing.assert_array_equal(scores.view(np.int32), ref[2].view(np.int32))
             np.testing.assert_array_equal(nodes, ref[3])
+
+
+@pytest.mark.parametrize("case", [(20, 4, 6), (21, 5, 8), (22, 3, 33)], ids=str)
+def test_linker_kernel_takes_nan_and_inf_as_the_masked_scan_does(linker_kernel_on_cpu, case):
+    """scores with NaN, +inf, -inf, negatives and exact ties: the kernel
+    (ring at D 6 and 8, L2 reads at D 33; tables in shared memory and in a
+    global scratch) gives the replay's paths bitwise, the sequential scan
+    of the masked matrices (one source group). Its row-mask fold is exact
+    for any input: a removed row's candidates are never taken."""
+    seed, T, d = case
+    rng = np.random.RandomState(seed)
+    vals = np.array([-np.inf, np.inf, np.nan, 0.0, 0.25, 0.5, 1.0, -0.5, 2.0], np.float32)
+    for _ in range(4):
+        seq = rng.choice(vals, size=(T - 1, d, d), p=[0.2, 0.05, 0.05, 0.1, 0.15, 0.15, 0.15, 0.05, 0.1])
+        ini = rng.choice(vals, size=d)
+        seq, ini = seq.astype(np.float32), ini.astype(np.float32)
+        n, spans, scores, nodes = _kernel_replay(seq, ini, 1)
+        for tables_in_smem in (True, False):
+            got = _run_cpu_kernel(linker_kernel_on_cpu, seq, ini, tables_in_smem)
+            assert got[0] == n
+            np.testing.assert_array_equal(got[1][:n], spans)
+            np.testing.assert_array_equal(got[2][:n].view(np.int32), scores.view(np.int32))
+            np.testing.assert_array_equal(got[3][:n], nodes)
+
+
+@pytest.mark.parametrize("case", [(0, 4, 6), (9, 10, 33), (12, 4, 40)], ids=str)
+def test_linker_kernel_direct_reads(linker_kernel_direct_reads, case):
+    """the kernel without its ring (the DP reads the matrices from L2,
+    skipping removed rows by the bitmap word in a register), G per slot,
+    tables in shared memory and in a global scratch: the plain version's
+    paths, bitwise."""
+    _assert_cpu_kernel_matches_plain(linker_kernel_direct_reads, *case, ring=False)
+
+
+@pytest.mark.parametrize("case", [(0, 4, 6), (5, 8, 33)], ids=str)
+def test_linker_kernel_leaves_its_input_unchanged(linker_kernel_on_cpu, case):
+    """the kernel reads the score matrices and init scores it is given and
+    writes neither: the buffers it was launched on are bitwise unchanged,
+    with the step tables in shared memory and in a global scratch."""
+    for seq, ini in _link_problems(*case):
+        t1, d = seq.shape[0], seq.shape[1]
+        seq_before, ini_before = seq.tobytes(), ini.tobytes()
+        for tables_in_smem in (True, False):
+            tables = [np.zeros((t1, d), np.float32), np.zeros((t1, d), np.int32)]
+            out = [np.zeros((t1 + 1) * d * 2, np.int32), np.zeros((t1 + 1) * d, np.float32),
+                   np.zeros((t1 + 1) * d * (t1 + 1), np.int32), np.zeros(1, np.int32)]
+            ptrs = [None, None] if tables_in_smem else [x.ctypes.data for x in tables]
+            linker_kernel_on_cpu.cpu_launch(seq.ctypes.data, ini.ctypes.data, *ptrs, *(x.ctypes.data for x in out), t1, d)
+            assert int(out[3][0]) > 0
+            assert seq.tobytes() == seq_before and ini.tobytes() == ini_before
 
 
 @pytest.mark.parametrize("seed", [0, 1])
