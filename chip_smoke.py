@@ -24,9 +24,10 @@ Phases, each printing a line:
   5. nms: the NMS kernel (ops/csrc/nms.cu) against its plain fixed-point
      loop, keep-masks bitwise, at the working point (8 frames x 3072
      slots, 3000 eligible) on the slice phase's decoded RPN boxes and on
-     random boxes at IoU 0.3 and 0.5, at k = 1, 63, 64, 65 and 1000, and
-     against nms_np on one frame; its time, its two launches' times, the
-     plain loop's time and the bound.
+     random boxes at IoU 0.3 and 0.5, at k = 1, 63, 64, 65 and 1000, at
+     2 x 4096 (all valid, dense clusters) and 1 x 16,384, and against
+     nms_np on one frame; its time, its two launches' times, the plain
+     loop's time and the bound.
   6. export: export_detector on the slice phase's model at pair_batch
      BATCH_SIZE (torch.export; the program written to a temporary
      directory and deleted after the load), load_detector serving the slice
@@ -42,8 +43,14 @@ Phases, each printing a line:
      matrices and against the native linker on a 64-frame linking-only
      case, the kernel against its plain version at D 1500 and 2048 (several
      slots per thread), each with the score matrices unchanged after the
-     launch and the bytes its DP steps read, detect_clip's tracks against
-     the plain correlation, and the call's device time by stage.
+     launch and the bytes its DP steps read, the clip and the D 1500 / 2048
+     cases again with the removed bitmap and the path forced into the
+     global scratch (the layout of clips too long for shared memory), a
+     3,100-frame clip at D 512 whose bitmap does not fit in shared memory
+     (a kernel that kept it there refused such a clip) against its plain
+     version, detect_clip's
+     tracks against the plain correlation, and the call's device time by
+     stage.
   8. train: full-width joint training steps (the same configuration, the
      package's seeded init, synthetic frame pairs at INPUT_SHAPE): one
      warm-up step, then
@@ -78,7 +85,9 @@ exits non-zero.
 `python3 chip_smoke.py --linker` runs the device and build phases and then
 the linker kernel alone (a clip-like 22-frame problem at D 128 against its
 plain version, then the clip phase's linking-only cases): a quick check of
-a linker change, not the smoke test.
+a linker change, not the smoke test. `python3 chip_smoke.py --nms` runs
+the device and build phases and then the NMS kernel alone, held against
+its plain loop and timed at 8 x 3072 and 2 x 4096.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -500,6 +509,9 @@ def phase_slice(smi: str):
 # 2 clamps, the intersection, the union's add and subtraction, its sign test,
 # the division and the threshold compare)
 NMS_IOU_FLOPS = 14
+# the largest k of the nms phase: the plain loop's IoUs and their
+# intermediates are a few (k, k) float32 tensors, 1 GiB each at 16,384
+NMS_LARGEST_K = 16384
 
 
 def nms_bound_ms(boxes, valid, keep, iou):
@@ -525,18 +537,33 @@ def nms_bound_ms(boxes, valid, keep, iou):
     return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations"), compares
 
 
-def _nms_boxes(seed, b, k, n_valid):
+def _nms_boxes(seed, b, k, n_valid, per_center=12):
     """(b, k, 4) clustered random ijhw boxes on the card (long suppression
-    chains), the first n_valid slots of each frame valid."""
+    chains; about per_center boxes a cluster), the first n_valid slots of
+    each frame valid."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    centers = rng.random((max(k // 12, 1), 2))
+    centers = rng.random((max(k // per_center, 1), 2))
     ij = centers[rng.integers(0, len(centers), (b, k))] + rng.standard_normal((b, k, 2)) * 0.03
     boxes = np.concatenate([ij, rng.random((b, k, 2)) * 0.2 + 0.02], -1).astype(np.float32)
     valid = np.arange(k)[None].repeat(b, 0) < n_valid
     return torch.from_numpy(boxes).cuda(), torch.from_numpy(valid).cuda()
+
+
+def nms_launch_ms(fn) -> dict:
+    """ms per launch of each of the NMS op's two kernels over 5 calls of fn
+    (profiler): {"nms_mask_kernel": ms, "nms_sweep_kernel": ms}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    return {_kernel_short(e.key): getattr(e, "self_device_time_total", 0.0) / e.count / 1e3
+            for e in prof.key_averages() if "nms_" in e.key}
 
 
 def phase_nms(smi: str, det):
@@ -546,13 +573,15 @@ def phase_nms(smi: str, det):
     eligible) on the slice phase's decoded RPN boxes (score-descending, as
     the proposal filter gives them) and on clustered random boxes, at IoU
     EVAL_NMS_IOU_THRESH and TRAIN_NMS_IOU_THRESH; at k = 1, 63, 64, 65 and
-    1000; against nms_np on one frame. Runs after the slice phase, whose
+    1000; at k 4096 (2 frames, all valid, dense clusters: kept slots whose
+    rows reach across many words) and at k NMS_LARGEST_K (1 frame, the
+    largest k whose k x k IoU tensor the plain loop holds comfortably on
+    the card); against nms_np on one frame. Runs after the slice phase, whose
     model gives the RPN boxes; outside the main-path counts. Times the
     kernel (CUDA events), its two launches (profiler) and the plain loop
     (host reads included). Returns the kernels line's row."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from detect_to_track_tpu_torch.encoding import frcnn_box_decode
     from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda, nms_mask_ref, nms_np, top_k_proposals
@@ -581,12 +610,7 @@ def phase_nms(smi: str, det):
             ms = cuda_time_ms(lambda: nms_mask_cuda(boxes, valid, iou))
             plain_ms = cuda_time_ms(lambda: nms_mask_ref(boxes, valid, iou), iters=3, warmup=1)
             bound, by, compares = nms_bound_ms(boxes, valid, got, iou)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    nms_mask_cuda(boxes, valid, iou)
-                torch.cuda.synchronize()
-            split = {_kernel_short(e.key): getattr(e, "self_device_time_total", 0.0) / e.count / 1e3
-                     for e in prof.key_averages() if "nms_" in e.key}
+            split = nms_launch_ms(lambda: nms_mask_cuda(boxes, valid, iou))
             log(f"[nms] {name} boxes {tuple(boxes.shape[:2])}, {int(valid.sum())} eligible, IoU {iou}: kernel = plain "
                 f"loop (bitwise), {int(got.sum())} kept; ms={ms:.4f} (per launch: "
                 f"{', '.join(f'{n} {t:.4f}' for n, t in split.items())}) plain_ms={plain_ms:.3f} "
@@ -598,6 +622,22 @@ def phase_nms(smi: str, det):
         for iou in ious:
             if not torch.equal(nms_mask_cuda(boxes, valid, iou), nms_mask_ref(boxes, valid, iou)):
                 raise AssertionError(f"the NMS kernel differs from the plain loop at k = {kk}, IoU {iou}")
+    # long kept chains across words, and the largest k of the plain loop
+    for b, kk, per_center in ((2, 4096, 64), (1, NMS_LARGEST_K, 12)):
+        boxes, valid = _nms_boxes(kk, b, kk, kk, per_center)
+        for iou in ious:
+            got = nms_mask_cuda(boxes, valid, iou)
+            ref = nms_mask_ref(boxes, valid, iou)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"the NMS kernel differs from the plain loop at {b} x {kk}, IoU {iou}: "
+                                     f"{int((got != ref).sum())} slots")
+            ms = cuda_time_ms(lambda: nms_mask_cuda(boxes, valid, iou), iters=5, warmup=1)
+            nz = torch.nonzero(got)
+            words = len(torch.unique(nz[:, 0] * kk + nz[:, 1] // 64))
+            log(f"[nms] {b} x {kk} clustered boxes ({per_center} a cluster), all valid, IoU {iou}: kernel = plain loop "
+                f"(bitwise), {len(nz)} kept, in {words} of the {b * -(-kk // 64)} mask words; ms={ms:.4f}")
+        del boxes, valid, got, ref
+        torch.cuda.empty_cache()
     boxes, valid = rpn[0][0], rpn[1][0]
     idx = torch.nonzero(valid).flatten().cpu().numpy()
     scores = np.linspace(1.0, 0.0, len(idx), dtype=np.float32)
@@ -773,6 +813,24 @@ def checked_linker(seq, init):
     return got
 
 
+def global_bitmap_linker(seq, init, iters):
+    """the linker kernel with its removed-node bitmap and path forced into
+    the global scratch (the layout of clips too long for shared memory, as
+    the size rule gives it past about 1,037 frames at D 1500), the step
+    tables where the size rule puts them; outside the main-path count.
+    Returns its paths (input checked unchanged) and its ms per call."""
+    from detect_to_track_tpu_torch import viterbi_device as vd
+
+    in_smem = vd._bitmap_in_smem
+    vd._bitmap_in_smem = lambda lib, t1, d: False
+    try:
+        got = checked_linker(seq, init)
+        ms = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(seq, init), iters=iters, warmup=1)
+    finally:
+        vd._bitmap_in_smem = in_smem
+    return got, ms
+
+
 def _same_paths(got, ref):
     import torch
 
@@ -789,9 +847,11 @@ def _trimmed(paths):
 
 def linker_cases(d):
     """the linker kernel on linking-only cases, outside the main-path count:
-    64 frames at D d against the native linker, and 3 frames at D 1500 and
-    2048 (several slots per thread) against its plain version; each with its
-    time and the DP's streamed bytes."""
+    64 frames at D d against the native linker, 3 frames at D 1500 and
+    2048 (several slots per thread) against its plain version, the latter
+    also with the bitmap forced into the global scratch, and a clip past
+    the shared-memory bitmap (linker_past_shared_bitmap); each with its time
+    and the DP's streamed bytes."""
     import numpy as np
     import torch
 
@@ -827,10 +887,17 @@ def linker_cases(d):
         if not _same_paths(got_b, ref_b):
             raise AssertionError(f"the linker kernel disagrees with its plain version at D = {d_big}")
         ms_b = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(seq_b, init_b), iters=3, warmup=1)
+        glob_b, glob_ms = global_bitmap_linker(seq_b, init_b, iters=3)
+        if not _same_paths(glob_b, ref_b):
+            raise AssertionError(f"the linker kernel with a global bitmap disagrees with its plain version at D = {d_big}")
         steps_b, _ = linker_dp_steps([p[0] for p in _trimmed(got_b)])
         log(f"[clip] linker 2x{d_big}x{d_big} (dyadic scores, {-(-d_big // 1024)} slots per thread at most): "
-            f"kernel = plain version (n_paths {int(got_b.n_paths)}, spans, nodes, bitwise scores), input unchanged; "
-            f"{steps_b} DP steps run; ms={ms_b:.4f} {linker_stream(steps_b, d_big, ms_b)} plain_ms={plain_b:.1f}")
+            f"kernel = plain version (n_paths {int(got_b.n_paths)}, spans, nodes, bitwise scores), input unchanged, "
+            f"bitmap in shared memory and in the global scratch; {steps_b} DP steps run; ms={ms_b:.4f} "
+            f"{linker_stream(steps_b, d_big, ms_b)} global-bitmap ms={glob_ms:.4f} plain_ms={plain_b:.1f}")
+        del seq_b, init_b, got_b, ref_b, glob_b
+    torch.cuda.empty_cache()
+    linker_past_shared_bitmap()
 
 
 def phase_clip(smi: str, det):
@@ -942,6 +1009,9 @@ def phase_clip(smi: str, det):
     if not _same_paths(got, ref):
         raise AssertionError("the linker kernel disagrees with its plain version on the clip's score matrices")
     ms = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(seq, init), iters=10, warmup=2)
+    glob, glob_ms = global_bitmap_linker(seq, init, iters=10)
+    if not _same_paths(glob, ref):
+        raise AssertionError("the linker kernel with a global bitmap disagrees with its plain version on the clip")
     seq_host, init_host = list(seq.double().cpu().numpy()), init.double().cpu().tolist()
     t = time.perf_counter()
     viterbi_multi_link(seq_host, init_host, use_native=True)
@@ -952,6 +1022,7 @@ def phase_clip(smi: str, det):
     log(f"[clip] linker {n - 1}x{cfg.max_dets}x{cfg.max_dets}: kernel = plain version (n_paths, spans, nodes, "
         f"bitwise scores), input unchanged; {len(paths)} paths ({sum(e > 0 for (_, e), _, _ in paths)} extractions), "
         f"{steps} DP steps run ({full} from step 0); ms={ms:.4f} {linker_stream(steps, cfg.max_dets, ms)} "
+        f"global-bitmap ms={glob_ms:.4f} (= plain version, bitwise) "
         f"plain_ms={plain_ms:.1f} native_ms={native_ms:.2f} bound_ms={bound:.6f} "
         f"({by}: the score matrices read once, outputs written once, an add and a compare per entry per DP step)")
 
@@ -1234,9 +1305,14 @@ def phase_trainer(smi: str):
 
 def _counters():
     from detect_to_track_tpu_torch.ops import correlation as corr
+    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
 
     return {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
-            "corr_bwd_fm1": corr.corr_bwd_fm1_cuda}
+            "corr_bwd_fm1": corr.corr_bwd_fm1_cuda, "nms_mask": nms_mask_cuda}
+
+
+def _launches(corr_fwd, corr_bwd_fm0, corr_bwd_fm1, nms_mask) -> dict:
+    return {"corr_fwd": corr_fwd, "corr_bwd_fm0": corr_bwd_fm0, "corr_bwd_fm1": corr_bwd_fm1, "nms_mask": nms_mask}
 
 
 def _zero_counts() -> None:
@@ -1290,7 +1366,8 @@ def phase_ddp(smi: str):
     - world size 1, NCCL: make_parallel_train_step (DistributedDataParallel)
       at full width from the train phase's init and batch against
       make_train_step: the losses equal, the updated weights within 1e-2 of
-      each tensor's largest update, 3 / 2 / 2 kernel launches.
+      each tensor's largest update, 3 / 2 / 2 / 1 kernel launches (corr_fwd,
+      corr_bwd_fm0, corr_bwd_fm1, nms_mask).
     - world size 2 on the one card, gloo named explicitly (NCCL refuses two
       ranks on one device): two child processes (ranks) run one step at 2
       pairs per rank against the single-process 4-pair step (losses rtol
@@ -1347,8 +1424,8 @@ def phase_ddp(smi: str):
     log(f"[ddp] world size 1 ({backend}): DDP step {ms:.1f} ms (its first, warm-up included), launches {launches}; "
         f"losses {losses.tolist()} vs make_train_step {ref_losses.tolist()}; weights' largest difference "
         f"{share:.3e} of the tensor's largest update ({worst}; tol 1e-2)")
-    if list(launches.values()) != [3, 2, 2]:
-        raise AssertionError(f"world-size-1 DDP step launches {launches}, expected 3 / 2 / 2")
+    if launches != _launches(3, 2, 2, 1):
+        raise AssertionError(f"world-size-1 DDP step launches {launches}, expected 3 / 2 / 2 / 1")
     if not torch.equal(losses, ref_losses):
         raise AssertionError("world-size-1 DDP step losses differ from make_train_step's")
     if not share <= 1e-2:
@@ -1411,7 +1488,7 @@ def phase_ddp(smi: str):
     if not (loss_err <= DDP_LOSS_RTOL and share <= DDP_UPDATE_SHARE):
         raise AssertionError("the 2-rank step disagrees with the single-process step")
     for rk in ranks:
-        if rk["step"]["launches"] != {"corr_fwd": 6, "corr_bwd_fm0": 4, "corr_bwd_fm1": 4}:
+        if rk["step"]["launches"] != _launches(6, 4, 4, 2):
             raise AssertionError(f"a rank's two DDP steps launched {rk['step']['launches']}")
     # 2. make_parallel_detect against Detector.detect_pairs: bitwise the
     # ranks' rows as their own calls, and the 4-pair call's valid counts
@@ -1422,7 +1499,7 @@ def phase_ddp(smi: str):
             or ranks[1]["detect"]["digest"] != det["digest"]:
         raise AssertionError(f"make_parallel_detect disagrees with Detector.detect_pairs: {det}")
     for rk in ranks:
-        if rk["detect"]["launches"] != {"corr_fwd": 3, "corr_bwd_fm0": 0, "corr_bwd_fm1": 0}:
+        if rk["detect"]["launches"] != _launches(3, 0, 0, 1):
             raise AssertionError(f"a rank's parallel detect launched {rk['detect']['launches']}")
     # 3. train.main with NUM_DEVICES 2
     out = Path(tcfg.OUTPUT_DIR)
@@ -1434,8 +1511,8 @@ def phase_ddp(smi: str):
     steps, val_batches = tcfg.TRN_SIZE // tcfg.BATCH_SIZE, tcfg.VAL_SIZE // tcfg.BATCH_SIZE
     for r, rk in enumerate(ranks):
         rep_pairs = tcfg.REP_SIZE if r == 0 else 0  # rank 0 alone reports
-        expected = {"corr_fwd": 3 * (steps + val_batches + rep_pairs), "corr_bwd_fm0": 2 * steps,
-                    "corr_bwd_fm1": 2 * steps}
+        calls = steps + val_batches + rep_pairs  # one forward, so 3 K1 and 1 NMS, each
+        expected = _launches(3 * calls, 2 * steps, 2 * steps, calls)
         if rk["train"]["launches"] != expected or rk["train"]["steps"] != steps:
             raise AssertionError(f"rank {r}: train.main launches {rk['train']['launches']} != {expected}")
     if ranks[0]["train"]["digest"] != ranks[1]["train"]["digest"]:
@@ -1567,7 +1644,7 @@ def phase_options(smi: str):
       magnitude, and the bf16 Detector on the slice phase's pairs (3 K1 per
       call, finite outputs, the plain stem's valid counts);
     - REMAT: one training step (bf16, 4 pairs) against the plain step from
-      the same weights: the losses equal, 3 / 2 / 2 launches a step, two
+      the same weights: the losses equal, 3 / 2 / 2 / 1 launches a step, two
       more steps timed, the first step's weights
       within 1e-2 of each tensor's largest update, and the track loss's
       gradients wrt layer3 / layer4 within 1e-2 of their largest magnitude;
@@ -1624,7 +1701,7 @@ def phase_options(smi: str):
     log(f"[options] HOST_S2D Detector (bf16): detect_pairs x{len(pairs)} and __call__, launches {launches}; valid "
         f"per frame {counts_b}, the plain stem's {counts_a}; __call__ {len(boxes0)} frame-0 detections")
     finite = all(bool(torch.isfinite(f).all()) for f in (b.confs, b.boxes, b.tracks))
-    if launches["corr_fwd"] != 6 or counts_a != counts_b or not finite or tracks.shape != (len(boxes0), 4):
+    if launches != _launches(6, 0, 0, 2) or counts_a != counts_b or not finite or tracks.shape != (len(boxes0), 4):
         raise AssertionError("the HOST_S2D Detector's launches, valid counts or outputs are wrong")
     del plain, s2d
 
@@ -1653,7 +1730,7 @@ def phase_options(smi: str):
         results[remat] = (losses, weights)
         log(f"[options] REMAT {remat}: steps 2-3 {ms} ms, launches {launches} in 3 steps, first step's losses "
             f"{losses.tolist()}")
-        if list(launches.values()) != [9, 6, 6]:
+        if launches != _launches(9, 6, 6, 3):
             raise AssertionError(f"REMAT {remat} steps launched {launches}")
     share, worst = _update_err(results[True][1], results[False][1], init)
     log(f"[options] REMAT step vs plain step: losses equal {torch.equal(results[True][0], results[False][0])}, "
@@ -1845,9 +1922,84 @@ def clip_like_problem(seed, t, d):
     return seq, np.ones(d, np.float32)
 
 
+# the linking-only clip past the shared-memory bitmap: the bitmap and the
+# path of 3,100 frames at D 512 take 3,100 x 17 words, past the 3,041
+# frames that fit beside the per-slot state; its score matrices take 3.3 GB
+# and its `nodes` output (T * D, T) int32 19.7 GB, twice with the plain
+# version's
+PAST_CAP_FRAMES, PAST_CAP_SLOTS = 3100, 512
+
+
+def sparse_link_problem(seed, t, d):
+    """(T-1, D, D) scores on the card, all -inf but for 8 chains of 6
+    dyadic links (one into the last frame, one from frame 0, the others
+    anywhere), and 8 finite init scores: few paths, so the plain version
+    runs few extractions."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    seq = torch.full((t - 1, d, d), -math.inf, device="cuda")
+    for s0 in [t - 7, 0, *rng.integers(0, t - 7, size=6)]:
+        nodes = rng.integers(0, d, size=7)
+        for i in range(6):
+            seq[s0 + i, nodes[i], nodes[i + 1]] = float(rng.integers(1, 8)) / 4
+    init = torch.full((d,), -math.inf, device="cuda")
+    init[torch.from_numpy(rng.integers(0, d, size=8)).cuda()] = torch.from_numpy(
+        rng.integers(0, 4, size=8) / 4).float().cuda()
+    return seq, init
+
+
+def linker_past_shared_bitmap(t=PAST_CAP_FRAMES, d=PAST_CAP_SLOTS):
+    """a linking-only clip whose removed bitmap and path do not fit in
+    shared memory, so the wrapper passes the global scratch by the size
+    rule (a kernel that kept them there refused such a clip): the kernel
+    against its plain version, bitwise. Times a second, warm call (CUDA
+    events; its outputs and scratch come from the allocator's cache, so the
+    time is the launch's) beside the first call's (allocations
+    included)."""
+    import torch
+
+    from detect_to_track_tpu_torch import viterbi_device as vd
+
+    if vd._bitmap_in_smem(vd._viterbi_lib(), t - 1, d):
+        raise AssertionError(f"{t} frames at D {d} should not fit the shared-memory bitmap")
+    seq, init = sparse_link_problem(0, t, d)
+    seq_before = seq.clone()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(2):
+        got = None  # the first call's outputs go back to the cache
+        start.record()
+        got = vd.viterbi_multi_link_cuda(seq, init)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    call_ms, ms = times
+    if not torch.equal(seq.view(torch.int32), seq_before.view(torch.int32)):
+        raise AssertionError("the linker kernel changed its input score matrices")
+    del seq_before
+    t0 = time.perf_counter()
+    ref = vd.viterbi_multi_link_ref(seq, init)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not _same_paths(got, ref):
+        raise AssertionError(f"the linker kernel disagrees with its plain version at {t} frames, D {d}")
+    paths = _trimmed(got)
+    steps, full = linker_dp_steps([p[0] for p in paths])
+    log(f"[clip] linker {t - 1}x{d}x{d} (past the shared-memory bitmap: the global scratch by the size rule; all -inf "
+        f"but 8 chains of 6 links): kernel = plain version (n_paths {len(paths)}, spans, nodes, bitwise scores), "
+        f"input unchanged; {sum(e > 0 for (_, e), _, _ in paths)} extractions, {steps} DP steps run; ms={ms:.1f} "
+        f"(warm call) {linker_stream(steps, d, ms)} first call ms={call_ms:.1f} (allocations included) "
+        f"plain_ms={plain_ms:.1f}")
+    del seq, init, got, ref
+    torch.cuda.empty_cache()
+
+
 def phase_linker(d: int = 128):
     """the linker kernel alone (`--linker`): a clip-like 22-frame problem at
-    D d against the plain version, then linker_cases(d)."""
+    D d against the plain version (the bitmap in shared memory and forced
+    into the global scratch), then linker_cases(d)."""
     import torch
 
     from detect_to_track_tpu_torch import viterbi_device as vd
@@ -1861,11 +2013,52 @@ def phase_linker(d: int = 128):
     if not _same_paths(got, ref):
         raise AssertionError("the linker kernel disagrees with its plain version on the clip-like problem")
     ms = cuda_time_ms(lambda: vd.viterbi_multi_link_cuda(seq, init), iters=10, warmup=2)
+    glob, glob_ms = global_bitmap_linker(seq, init, iters=10)
+    if not _same_paths(glob, ref):
+        raise AssertionError("the linker kernel with a global bitmap disagrees with its plain version (clip-like)")
     steps, full = linker_dp_steps([p[0] for p in _trimmed(got)])
     log(f"[linker] {CLIP_FRAMES - 1}x{d}x{d} clip-like (scores 2 or 3, all live): kernel = plain version, input "
-        f"unchanged; {int(got.n_paths)} paths, {steps} DP steps run ({full} from step 0); ms={ms:.4f} "
-        f"{linker_stream(steps, d, ms)} plain_ms={plain_ms:.1f}")
+        f"unchanged, bitmap in shared memory and in the global scratch; {int(got.n_paths)} paths, {steps} DP steps "
+        f"run ({full} from step 0); ms={ms:.4f} {linker_stream(steps, d, ms)} global-bitmap ms={glob_ms:.4f} "
+        f"plain_ms={plain_ms:.1f}")
     linker_cases(d)
+
+
+def phase_nms_design(smi: str):
+    """the NMS kernel alone (`--nms`), without the model: at 8 x 3072 slots
+    (3000 eligible) on clustered random boxes and at 2 x 4096 (all valid,
+    dense clusters), IoU 0.3 and 0.5, bitwise the plain loop, with the op's
+    time and each launch's."""
+    import torch
+
+    from detect_to_track_tpu_torch.ops import nms
+
+    cases = {"8 x 3072 (3000 eligible)": _nms_boxes(0, 8, 3072, 3000),
+             "2 x 4096 (all valid, 64 a cluster)": _nms_boxes(4096, 2, 4096, 4096, 64)}
+    for name, (boxes, valid) in cases.items():
+        for iou in (0.3, 0.5):
+            ref = nms.nms_mask_ref(boxes, valid, iou)
+            got = nms.nms_mask_cuda(boxes, valid, iou)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                raise AssertionError(f"the NMS kernel differs from the plain loop on {name} at IoU {iou}")
+            ms = cuda_time_ms(lambda: nms.nms_mask_cuda(boxes, valid, iou))
+            split = nms_launch_ms(lambda: nms.nms_mask_cuda(boxes, valid, iou))
+            log(f"[nms-design] {name}, IoU {iou}: = plain loop (bitwise), {int(ref.sum())} kept; "
+                f"ms={ms:.4f} (per launch: {', '.join(f'{n} {t:.4f}' for n, t in split.items())}); card: {smi}")
+
+
+def main_nms() -> int:
+    """`python3 chip_smoke.py --nms`: the device and build phases, then the
+    NMS kernel alone, timed without the model. A quick check of
+    an NMS change; the full run (no arguments) is the smoke test."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(ROOT))
+    smi = phase_device()
+    phase_build()
+    phase_nms_design(smi)
+    log(f"[done] nms phases passed in {time.perf_counter() - t_start:.1f} s")
+    return 0
 
 
 def main_linker() -> int:
@@ -1949,9 +2142,10 @@ def main() -> int:
         "bound_by": linker_row["bound_by"],
         "library_ms": None,
     })
-    # the paths that count NMS launches: slice, export, clip, train, trainer
+    # every path counts NMS launches: slice, export, clip, train, trainer,
+    # ddp and options
     nms_launches = sum(x["nms_mask"] for x in (slice_launches, export_launches, clip_launches, train_launches,
-                                                trainer_launches))
+                                                trainer_launches, extra))
     kernels.append({
         "name": "nms_mask",
         "route": "cuda",
@@ -1978,4 +2172,6 @@ if __name__ == "__main__":
         sys.exit(ddp_rank_main(Path(sys.argv[2])))
     if sys.argv[1:2] == ["--linker"]:
         sys.exit(main_linker())
+    if sys.argv[1:2] == ["--nms"]:
+        sys.exit(main_nms())
     sys.exit(main())

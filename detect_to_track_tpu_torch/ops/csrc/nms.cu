@@ -14,11 +14,31 @@
 //    (column word w, row block of 64, frame b): the 64 column boxes are
 //    staged in shared memory, each thread computes its row's word. Words
 //    left of the diagonal block (every j < i) are written as 0.
-// 2. nms_sweep_kernel: one block per frame walks the slots in index order
-//    with a `removed` bitset of ceil(k / 64) words in shared memory: slot i
-//    is kept iff valid and its bit is clear, and a kept slot ORs row i of
-//    the mask into `removed`, one word per thread (only words >= i / 64:
-//    the row has no bit below i). keep = valid & ~removed at the end.
+// 2. nms_sweep_kernel: one block per frame resolves the slots 64 at a time,
+//    one mask word w after the other, with a `dead` bitset of ceil(k / 64)
+//    words in shared memory (bit set: invalid, past k, suppressed, or, once
+//    its word is resolved, not kept), one barrier a word. In step w:
+//    - thread 0 walks the 64 bits of word w in order, from live = ~dead[w]:
+//      a bit t still set is kept, and its diagonal word mask[64 w + t][w]
+//      clears the slots of word w it suppresses (only bits above t), so the
+//      bits left are kept_w, the greedy result inside the word; dead[w] =
+//      ~kept_w. The walk is unrolled and branch-free on the two 32-bit
+//      halves (a step of the low half costs a bit test and an AND, the
+//      high half's updates ride beside it), and its shared-memory loads do
+//      not depend on it. Alongside each kept slot it ORs the slot's
+//      super-diagonal word mask[64 w + t][w + 1] into a register: the carry
+//      that word w + 1's walk starts from, so no block-wide update stands
+//      between two walks;
+//    - the block's last 128 threads load word w + 1's 64 diagonal and 64
+//      super-diagonal words into the other half of a double buffer (they do
+//      not depend on any result);
+//    - the threads from the second warp on OR the rows of word w - 1's kept
+//      slots into the words past w (mask[64 (w - 1) + t][v] for v > w), 4
+//      threads a word, each taking 16 bits of kept_{w - 1} and issuing its
+//      up to 16 loads at once (predicated, at fixed offsets), then a
+//      shared-memory atomicOr: this runs under the walk of word w, and word
+//      v > w is complete by the walk of v.
+//    keep = ~dead at the end.
 //
 // Bitwise equal to the plain version: the IoU is computed with the same
 // float32 operations in the same order as boxes.compute_ious and
@@ -33,23 +53,43 @@
 // What bounds it: at the working point (8 frames x 3072 slots) the IoUs
 // are about 0.6 GFLOP, microseconds at the card's float32 rate, and the
 // inputs and the keep-mask are 0.4 MB. The mask (B k^2 / 8 bytes, 9.4 MB)
-// stays in L2. The sweep is a chain of k dependent steps and bound by
-// latency: a slot that is invalid or already removed costs one
-// shared-memory read, a kept slot two barriers and one L2 read per thread.
+// stays in L2. The sweep is a chain of dependent steps and bound by
+// latency: per 64-slot word, thread 0's walk (64 dependent steps of a few
+// register operations) and one barrier; the next words' loads and the later
+// words' updates (one L2 round trip) run under the walk.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+// threads of a sweep block at most; the CPU build of the tests sets it small
+// so that a thread owns several words
+#ifndef D2T_NMS_MAX_THREADS
+#define D2T_NMS_MAX_THREADS 1024
+#endif
+
 namespace {
 
 constexpr int kWordBits = 64;
-// dynamic shared memory one block may use on Hopper
+constexpr int kMaxThreads = D2T_NMS_MAX_THREADS;
+static_assert(kMaxThreads >= 2, "the sweep needs a thread besides the walking one");
+// shared memory one block may use on Hopper, and the sweep's static part
+// (the diagonal and super-diagonal words' double buffers)
 constexpr size_t kMaxSmemBytes = 232448;
+constexpr size_t kSweepStaticBytes = 4 * kWordBits * sizeof(unsigned long long);
+// sweep threads that OR one word's update, each taking kSplitBits of the
+// kept slots (so its loads issue at once)
+constexpr int kSplit = 4;
+constexpr int kSplitBits = kWordBits / kSplit;
 
-// threads of a sweep block: one per bitset word, in whole warps, at most 1024
-int sweep_threads(int nw) { return nw < 1024 ? (nw + 31) / 32 * 32 : 1024; }
+// threads of a sweep block: the walking warp, kSplit per bitset word for
+// the updates and 128 that load the next word's diagonal and super-diagonal
+// words, in whole warps, at most kMaxThreads
+int sweep_threads(int nw) {
+  const int n = (32 + kSplit * nw + 2 * kWordBits + 31) / 32 * 32;
+  return n < kMaxThreads ? n : kMaxThreads;
+}
 
 // torch.maximum / torch.minimum / clamp(min=0): NaN in, NaN out
 __device__ __forceinline__ float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
@@ -106,35 +146,99 @@ nms_mask_kernel(const float* __restrict__ boxes, unsigned long long* __restrict_
 
 __global__ void nms_sweep_kernel(const unsigned long long* __restrict__ mask, const uint8_t* __restrict__ valid,
                                  uint8_t* __restrict__ keep, int k, int nw) {
-  extern __shared__ unsigned long long removed[];
+  extern __shared__ unsigned long long dead[];
+  // word w's diagonal words mask[64 w + t][w] and super-diagonal words
+  // mask[64 w + t][w + 1] in half w & 1
+  __shared__ unsigned long long diag[2][kWordBits], sup[2][kWordBits];
   const int b = blockIdx.x;
   const int tid = threadIdx.x, nth = blockDim.x;
   const uint8_t* vb = valid + static_cast<size_t>(b) * k;
   const unsigned long long* mb = mask + static_cast<size_t>(b) * k * nw;
-  for (int w = tid; w < nw; w += nth) removed[w] = 0ull;
+  // the updating threads: from the second warp on (thread 0 walks alone in
+  // its warp), or every thread but 0 in a block of one warp or less
+  const int h0 = nth > 32 ? 32 : 1;
+  // word w's diagonal and super-diagonal words, loaded from the block's last
+  // thread down (thread 0 only in a block of fewer than 129 threads)
+  auto load_words = [&](int w) {
+    const int n = min(kWordBits, k - w * kWordBits);
+    const int m = w + 1 < nw ? 2 * n : n;
+    for (int u = nth - 1 - tid; u < m; u += nth) {
+      const int t = u < n ? u : u - n;
+      const unsigned long long x = mb[(static_cast<size_t>(w) * kWordBits + t) * nw + w + (u < n ? 0 : 1)];
+      (u < n ? diag : sup)[w & 1][t] = x;
+    }
+  };
+  // the slots past k are dead; the invalid ones are set below, reading the
+  // valid bytes in order across the block
+  for (int w = tid; w < nw; w += nth)
+    dead[w] = w == nw - 1 && k % kWordBits ? ~0ull << (k % kWordBits) : 0ull;
+  load_words(0);
   __syncthreads();
-  for (int i = 0; i < k; ++i) {
-    // every thread reads the same values here, and `removed` is written
-    // only between the two barriers of a kept slot, so the branches are
-    // uniform across the block
-    if (!vb[i] || ((removed[i / kWordBits] >> (i % kWordBits)) & 1ull)) continue;
-    __syncthreads();  // every thread has read removed[i / 64]
-    const unsigned long long* r = mb + static_cast<size_t>(i) * nw;
-    for (int w = i / kWordBits + tid; w < nw; w += nth) removed[w] |= r[w];
+  for (int i = tid; i < k; i += nth)
+    if (!vb[i]) atomicOr(&dead[i / kWordBits], 1ull << (i % kWordBits));
+  __syncthreads();
+  unsigned long long carry = 0ull;  // thread 0: word w - 1's kept rows at word w
+  for (int w = 0; w < nw; ++w) {
+    if (tid == 0) {
+      // the greedy rule inside word w: in index order, a slot still live
+      // is kept and clears the slots its diagonal word suppresses (bits
+      // above it); the live bits left are the kept ones
+      const unsigned long long* d = diag[w & 1];
+      const unsigned long long* s = sup[w & 1];
+      const unsigned long long live = ~(dead[w] | carry);
+      unsigned lo = static_cast<unsigned>(live), hi = static_cast<unsigned>(live >> 32);
+      unsigned long long next = 0ull;
+#pragma unroll
+      for (int t = 0; t < kWordBits; ++t) {
+        const unsigned long long x = d[t], y = s[t];
+        const unsigned half = t < 32 ? lo : hi;
+        const unsigned m = static_cast<unsigned>(static_cast<int>(half << (31 - t % 32)) >> 31);  // bit t, all ones
+        const unsigned long long m64 = static_cast<unsigned long long>(m) << 32 | m;
+        if (t < 32) lo &= ~(static_cast<unsigned>(x) & m);
+        hi &= ~(static_cast<unsigned>(x >> 32) & m);
+        next |= y & m64;
+      }
+      dead[w] = ~(static_cast<unsigned long long>(hi) << 32 | lo);
+      carry = next;
+    }
+    if (w + 1 < nw) load_words(w + 1);
+    if (w > 0 && tid >= h0) {
+      // word w - 1's kept rows into the words past w (word w had them as
+      // the carry), kSplit threads a word
+      const unsigned long long kept = ~dead[w - 1];
+      const unsigned long long* rows = mb + static_cast<size_t>(w - 1) * kWordBits * nw;
+      for (int u = tid - h0; u < kSplit * nw; u += nth - h0) {
+        const int v = u % nw, q = u / nw;
+        if (v <= w) continue;
+        const unsigned bits = static_cast<unsigned>(kept >> (q * kSplitBits));
+        const unsigned long long* row = rows + static_cast<size_t>(q * kSplitBits) * nw + v;
+        unsigned long long r[kSplitBits], acc = 0ull;
+#pragma unroll
+        for (int i = 0; i < kSplitBits; ++i)  // independent predicated row loads, then their OR
+          r[i] = (bits >> i) & 1u ? row[static_cast<size_t>(i) * nw] : 0ull;
+#pragma unroll
+        for (int i = 0; i < kSplitBits; ++i) acc |= r[i];
+        if (acc) atomicOr(&dead[v], acc);
+      }
+    }
+    // dead[w] and word w + 1's loads are in place, and word w + 1 has every
+    // kept row of the words before w
     __syncthreads();
   }
-  // bit i is final once slot i - 1 is swept: later rows set no bit below them
   for (int i = tid; i < k; i += nth)
-    keep[static_cast<size_t>(b) * k + i] = vb[i] && !((removed[i / kWordBits] >> (i % kWordBits)) & 1ull);
+    keep[static_cast<size_t>(b) * k + i] = !((dead[i / kWordBits] >> (i % kWordBits)) & 1ull);
 }
 
 }  // namespace
 
 extern "C" {
 
-// shared memory of the sweep's `removed` bitset for k slots (the kernel's
-// only limit on k: k up to about 1.8 million)
-size_t d2t_nms_sweep_smem_bytes(int k) { return sizeof(unsigned long long) * ((k + kWordBits - 1) / kWordBits); }
+// shared memory of the sweep for k slots: the `dead` bitset and the
+// diagonal and super-diagonal words' double buffers (the kernel's only
+// limit on k: k up to about 1.8 million)
+size_t d2t_nms_sweep_smem_bytes(int k) {
+  return sizeof(unsigned long long) * ((k + kWordBits - 1) / kWordBits) + kSweepStaticBytes;
+}
 
 // boxes: (b, k, 4) float32 ijhw, score-descending; valid: (b, k) bool as
 // bytes; mask: (b, k, ceil(k / 64)) u64 scratch; keep: (b, k) bool as bytes,
@@ -144,9 +248,9 @@ size_t d2t_nms_sweep_smem_bytes(int k) { return sizeof(unsigned long long) * ((k
 int d2t_nms_mask(const void* boxes, const void* valid, void* mask, void* keep, int b, int k, float iou_thresh,
                  void* stream) {
   const int nw = (k + kWordBits - 1) / kWordBits;
-  const size_t smem = d2t_nms_sweep_smem_bytes(k);
-  if (b < 1 || k < 1 || b > 65535 || nw > 65535 || smem > kMaxSmemBytes)
+  if (b < 1 || k < 1 || b > 65535 || nw > 65535 || d2t_nms_sweep_smem_bytes(k) > kMaxSmemBytes)
     return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = d2t_nms_sweep_smem_bytes(k) - kSweepStaticBytes;  // the dynamic part
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   nms_mask_kernel<<<dim3(nw, nw, b), kWordBits, 0, s>>>(static_cast<const float*>(boxes),
                                                          static_cast<unsigned long long*>(mask), k, nw, iou_thresh);

@@ -32,18 +32,18 @@
 // chain. A step is bound by that SM: by how fast it issues the D * D adds
 // and compares and the block's barriers, and by how fast L2 feeds it one
 // matrix. What the design does about it:
-// - the score matrices are read only. A bitmap in shared memory,
-//   removed[t][n] (T x D bits), marks the extracted nodes. Entry (t, s, v)
-//   reads as -inf when removed[t][s] (its outgoing row is masked) or
-//   removed[t + 1][v] (its incoming column is masked), and init score n when
-//   removed[0][n]: the value a masked copy would hold in every entry a later
-//   read touches (the one row such a mask leaves, the end node's row of
-//   matrix final_ts, is never read again: later extractions end at final_ts
-//   or before). So the caller's tensor needs no copy and no -inf is written.
-//   A masked column's DP result is a fresh start whatever its sources hold
-//   (every candidate is -inf + score, never > 0). A masked row's candidates
-//   are -inf or NaN, never taken by '>' except source 0's, which a scan
-//   takes unconditionally: so the scan adds each source's score with its
+// - the score matrices are read only. A bitmap in shared memory (a global
+//   scratch for long clips), removed[t][n] (T x D bits), marks the extracted
+//   nodes. Entry (t, s, v) reads as -inf when removed[t][s] (its outgoing row
+//   is masked) or removed[t + 1][v] (its incoming column is masked), and init
+//   score n when removed[0][n]: the value a masked copy would hold in every
+//   entry a later read touches (the one row such a mask leaves, the end node's
+//   row of matrix final_ts, is never read again: later extractions end at
+//   final_ts or before). So the caller's tensor needs no copy and no -inf is
+//   written. A masked column's DP result is a fresh start whatever its sources
+//   hold (every candidate is -inf + score, never > 0). A masked row's
+//   candidates are -inf or NaN, never taken by '>' except source 0's, which a
+//   scan takes unconditionally: so the scan adds each source's score with its
 //   row's mask folded in (pm, -inf for a removed row) to the raw entry, and
 //   source 0's candidate alone is the masked entry's sum. The chosen (best,
 //   src) are the masked matrix's, for any input, NaN and +inf included;
@@ -78,9 +78,24 @@
 //   shared memory and updated with the bitmap, so the loop condition and the
 //   end-node tie-break read no matrix.
 // Parents and step scores move to a global scratch when they do not fit in
-// shared memory (long clips). Past kMaxThreads slots, G is 1 and a thread
-// owns the slots tid, tid + kMaxThreads, ..., scanning them two at a time
-// with the same adds and compares.
+// shared memory (long clips), and so do the removed bitmap and the path when
+// they do not fit beside the per-slot state (longer clips: past about 1,037
+// frames at D 1500, 11,059 at D 128). Then the rows the hot loops read are
+// staged in shared memory, in a ring of three row slots: a DP step reads
+// rows t and t + 1 and copies row t + 2 for the next step (loaded at the
+// step's start, stored at its end into the slot row t - 1 left, so the
+// step's closing barrier is the only one), and the count pass copies its two
+// rows first. The other reads and the removal writes, once per extraction,
+// go to the scratch with plain loads and stores (the kernel writes it, so
+// never `__ldg`; a block's global writes are visible to its threads after a
+// barrier). Read in place from global memory, the bitmap cost the hot scan
+// its batched loads. Where the bitmap fits, the layout is unchanged, and the
+// bitmap's place is a template parameter: chosen at run time, it left the
+// compiler unsure which pointers address shared memory, and generic loads
+// and stores in place of shared ones slowed the whole kernel. Past
+// kMaxThreads slots, G is 1 and a thread owns the slots tid, tid +
+// kMaxThreads, ..., scanning them two at a time with the same adds and
+// compares.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -121,8 +136,12 @@ __device__ __forceinline__ void for_each_slot(int tid, int nth, int D, F f) {
 }
 
 // dynamic shared memory per block: Hopper's 232,448 bytes less room for the
-// kernel's few static shared variables
-constexpr size_t kMaxSmemBytes = 232448 - 1024;
+// kernel's few static shared variables; the CPU build of the tests lowers it
+// to reach the global bitmap at a short clip
+#ifndef D2T_VITERBI_MAX_SMEM_BYTES
+#define D2T_VITERBI_MAX_SMEM_BYTES (232448 - 1024)
+#endif
+constexpr size_t kMaxSmemBytes = D2T_VITERBI_MAX_SMEM_BYTES;
 
 // the most shared memory the two-matrix ring may take; the CPU build of the
 // tests sets it to 0 to run the scan that reads the matrices from L2
@@ -139,13 +158,22 @@ size_t partial_words(int D) {
 }
 
 // shared memory: the end-node keys (8 bytes a thread), then in 4-byte
-// words init scores (D), masked scores (2 x D), finite counts (D), the path
-// (T), the removed bitmap (T rows of ceil(D / 32) words), the partials,
-// then, when they fit, step scores and parents (T1 x D each)
-size_t base_smem_bytes(int T1, int D) {
+// words init scores (D), masked scores (2 x D), finite counts (D), when they
+// fit the path (T) and the removed bitmap (T rows of ceil(D / 32) words),
+// else three staged bitmap rows, the partials, then, when they fit, step
+// scores and parents (T1 x D each)
+size_t base_smem_bytes(int T1, int D, bool bitmap_in_smem) {
   return sizeof(unsigned long long) * block_threads(D) +
-         sizeof(float) * (4 * static_cast<size_t>(D) + T1 + 1 + bitmap_words(T1, D) + partial_words(D));
+         sizeof(float) * (4 * static_cast<size_t>(D) + partial_words(D) +
+                          (bitmap_in_smem ? T1 + 1 + bitmap_words(T1, D) : bitmap_words(2, D)));
 }
+
+// the kernel's only limit on D (13,632 slots): the per-slot state and three
+// staged bitmap rows fit (and a thread stages at most one word of a row).
+// T is bounded by the card's memory alone
+bool fits(int D) { return base_smem_bytes(0, D, false) <= kMaxSmemBytes && (D + 31) / 32 <= block_threads(D); }
+
+bool bitmap_in_smem(int T1, int D) { return base_smem_bytes(T1, D, true) <= kMaxSmemBytes; }
 
 size_t table_bytes(int T1, int D) {
   return (sizeof(float) + sizeof(int)) * static_cast<size_t>(T1) * D;
@@ -157,21 +185,27 @@ size_t ring_bytes(int D) { return 2 * sizeof(float) * static_cast<size_t>(D) * D
 // per thread, matrices of a multiple of 16 bytes at 16-byte addresses (D
 // even, `seq` 16-byte aligned: the bulk copy's terms), and the ring fits
 // beside the rest of the block's state
-bool staged(const void* seq, int T1, int D, bool tables_in_smem) {
-  return D <= kMaxThreads && D % 2 == 0 && reinterpret_cast<size_t>(seq) % 16 == 0 &&
-         ring_bytes(D) <= static_cast<size_t>(D2T_VITERBI_MAX_RING_BYTES) &&
-         ring_bytes(D) + base_smem_bytes(T1, D) + (tables_in_smem ? table_bytes(T1, D) : 0) <= kMaxSmemBytes;
+// step scores and parents beside the rest, the bitmap where it fits
+bool tables_in_smem(int T1, int D) {
+  return base_smem_bytes(T1, D, bitmap_in_smem(T1, D)) + table_bytes(T1, D) <= kMaxSmemBytes;
 }
 
-size_t smem_bytes(const void* seq, int T1, int D, bool tables_in_smem) {
-  return base_smem_bytes(T1, D) + (tables_in_smem ? table_bytes(T1, D) : 0) +
-         (staged(seq, T1, D, tables_in_smem) ? ring_bytes(D) : 0);
+bool staged(const void* seq, int T1, int D, bool tables_in_smem, bool bitmap_in_smem) {
+  return D <= kMaxThreads && D % 2 == 0 && reinterpret_cast<size_t>(seq) % 16 == 0 &&
+         ring_bytes(D) <= static_cast<size_t>(D2T_VITERBI_MAX_RING_BYTES) &&
+         ring_bytes(D) + base_smem_bytes(T1, D, bitmap_in_smem) + (tables_in_smem ? table_bytes(T1, D) : 0) <=
+             kMaxSmemBytes;
+}
+
+size_t smem_bytes(const void* seq, int T1, int D, bool tables_in_smem, bool bitmap_in_smem) {
+  return base_smem_bytes(T1, D, bitmap_in_smem) + (tables_in_smem ? table_bytes(T1, D) : 0) +
+         (staged(seq, T1, D, tables_in_smem, bitmap_in_smem) ? ring_bytes(D) : 0);
 }
 
 // false for +-inf and NaN, as isfinite
 __device__ __forceinline__ bool finite(float x) { return fabsf(x) < CUDART_INF_F; }
 
-// bit n of a bitmap row
+// bit n of a bitmap row (in shared or global memory: a plain load)
 __device__ __forceinline__ bool bit(const unsigned* row, int n) { return (row[n >> 5] >> (n & 31)) & 1u; }
 
 #ifdef __CUDACC__
@@ -247,11 +281,13 @@ __device__ __forceinline__ void scan_sources(const float* __restrict__ m, const 
 }
 
 // kOneSlot: D <= kMaxThreads, one slot per thread, G threads per slot;
-// kStaged: the DP reads its matrices from the two-matrix ring
-template <bool kOneSlot, bool kStaged>
+// kStaged: the DP reads its matrices from the two-matrix ring;
+// kBitmapSmem: the removed bitmap and the path in shared memory, else in
+// removed_g and path_g
+template <bool kOneSlot, bool kStaged, bool kBitmapSmem>
 __global__ void __launch_bounds__(kMaxThreads)
     viterbi_multi_link_kernel(const float* __restrict__ seq, const float* __restrict__ init_scores,
-                              float* step_scores_g, int* parents_g, int* spans,
+                              float* step_scores_g, int* parents_g, unsigned* removed_g, int* path_g, int* spans,
                               float* scores_out, int* nodes, int* n_paths,
                               int T1, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -271,9 +307,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* init_s = reinterpret_cast<float*>(keys + nth);
   float* pm_s = init_s + D;  // 2 x D: step t reads half t & 1
   int* cnt = reinterpret_cast<int*>(pm_s + 2 * D);
-  int* path = cnt + D;
-  unsigned* removed = reinterpret_cast<unsigned*>(path + T);
-  float* part_v = reinterpret_cast<float*>(removed + static_cast<size_t>(T) * W);
+  // the path and the bitmap after the counts, or in the global scratch and
+  // then three staged rows after the counts (row r in slot r % 3)
+  int* path = kBitmapSmem ? cnt + D : path_g;
+  unsigned* removed = kBitmapSmem ? reinterpret_cast<unsigned*>(path + T) : removed_g;
+  unsigned* staged_rows = reinterpret_cast<unsigned*>(cnt + D);
+  float* part_v = reinterpret_cast<float*>(kBitmapSmem ? removed + static_cast<size_t>(T) * W : staged_rows + 3 * W);
   int* part_s = reinterpret_cast<int*>(part_v + (G > 1 ? G * D : 0));
   float* S = step_scores_g;
   int* P = parents_g;
@@ -298,6 +337,14 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   __syncthreads();
 
+  // bitmap row r where the hot loops read it: in place in shared memory, or
+  // its staged copy; stage(r) copies it there from the global scratch
+  auto row = [&](int r) -> const unsigned* { return kBitmapSmem ? removed + r * W : staged_rows + (r % 3) * W; };
+  // (W <= nth: fits() holds it, so a thread copies at most one word)
+  auto stage = [&](int r) {
+    if (!kBitmapSmem && tid < W) staged_rows[(r % 3) * W + tid] = removed[r * W + tid];
+  };
+
   // staged: thread 0 copies matrix t into ring half t & 1 (one bulk copy)
   auto fill = [&](int t) {
     bulk_copy(ring + (t & 1) * DD, seq + t * DD, static_cast<unsigned>(DD * sizeof(float)), &s_bar[t & 1]);
@@ -307,9 +354,12 @@ __global__ void __launch_bounds__(kMaxThreads)
     // finite entries of the incoming matrix's live rows, per live column
     bool any = false;
     {
+      stage(final_ts - 1);
+      stage(final_ts);
+      if (!kBitmapSmem) __syncthreads();
       const float* m = seq + (final_ts - 1) * DD;
-      const unsigned* rows = removed + (final_ts - 1) * W;
-      const unsigned* cols = removed + final_ts * W;
+      const unsigned* rows = row(final_ts - 1);
+      const unsigned* cols = row(final_ts);
       auto count = [&](int v, int s0, int s1) {
         int c = 0;
 #pragma unroll 8
@@ -347,18 +397,26 @@ __global__ void __launch_bounds__(kMaxThreads)
         for_each_slot<kOneSlot>(tid, nth, D, [&](int v) {
           pm_s[(t0 & 1) * D + v] = bit(removed + t0 * W, v) ? kNegInf : S[static_cast<size_t>(t0 - 1) * D + v];
         });
+      if (t0 < final_ts) {
+        stage(t0);
+        stage(t0 + 1);
+      }
       __syncthreads();  // every thread has read s_dirty before thread 0 moves it
       if (kStaged && tid == 0 && t0 < final_ts) fill(t0);
 
       for (int t = t0; t < final_ts; ++t) {
         const float* pm = t == 0 ? init_s : pm_s + (t & 1) * D;
         const float* m = seq + t * DD;
-        const unsigned* cols = removed + (t + 1) * W;
+        const unsigned* cols = row(t + 1);
+        // the next step's row, loaded now and stored at the step's end, so
+        // the load's latency hides under the scan
+        const bool stage_next = !kBitmapSmem && t + 2 <= final_ts && tid < W;
+        const unsigned next_word = stage_next ? removed[(t + 2) * W + tid] : 0u;
         // source 0's candidate for slot v as the sequential scan takes it:
         // the source's score plus its masked entry
         auto first = [&](const float* mat, int v, bool masked) {
           const float p0 = t == 0 ? init_s[0] : S[static_cast<size_t>(t - 1) * D];
-          return p0 + (bit(removed + t * W, 0) || masked ? kNegInf : (kStaged ? mat[v] : __ldg(mat + v)));
+          return p0 + (bit(row(t), 0) || masked ? kNegInf : (kStaged ? mat[v] : __ldg(mat + v)));
         };
         auto store = [&](int v, bool masked, float best, int src) {
           const bool fresh = masked || !(best > 0.f);
@@ -423,6 +481,7 @@ __global__ void __launch_bounds__(kMaxThreads)
             }
           }
         }
+        if (stage_next) staged_rows[((t + 2) % 3) * W + tid] = next_word;
         __syncthreads();
       }
 
@@ -539,52 +598,72 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+using Kernel = void (*)(const float*, const float*, float*, int*, unsigned*, int*, int*, float*, int*, int*, int, int);
+
+// the kernel for a launch: the ring when staged, one slot per thread up to
+// kMaxThreads slots, the bitmap where kBitmapSmem says
+template <bool kBitmapSmem>
+Kernel kernel_for(bool ring, int D) {
+  return ring               ? viterbi_multi_link_kernel<true, true, kBitmapSmem>
+         : D <= kMaxThreads ? viterbi_multi_link_kernel<true, false, kBitmapSmem>
+                            : viterbi_multi_link_kernel<false, false, kBitmapSmem>;
+}
+
 }  // namespace
 
 extern "C" {
 
-// 1 when a clip's init scores, counts, path, removed bitmap and partials fit
-// in shared memory (the kernel's only limit on D), else 0.
-int d2t_viterbi_fits(int T1, int D) { return base_smem_bytes(T1, D) <= kMaxSmemBytes ? 1 : 0; }
+// 1 when a clip's init scores, masked scores, counts, partials and three
+// staged bitmap rows fit in shared memory (the kernel's only limit on D:
+// 13,632 slots, at any T >= 0), else 0. The bitmap and the tables go to a
+// global scratch when they do not fit beside it.
+int d2t_viterbi_fits(int T1, int D) { return T1 >= 0 && D >= 1 && fits(D) ? 1 : 0; }
+
+// 1 when a clip's removed bitmap and path fit in shared memory beside the
+// per-slot state, 0 when the wrapper must pass a global scratch for them.
+int d2t_viterbi_bitmap_in_smem(int T1, int D) { return bitmap_in_smem(T1, D) ? 1 : 0; }
 
 // 1 when a clip's step scores and parents fit in shared memory beside the
 // rest, 0 when the wrapper must pass a global scratch for them.
-int d2t_viterbi_tables_in_smem(int T1, int D) {
-  return base_smem_bytes(T1, D) + table_bytes(T1, D) <= kMaxSmemBytes ? 1 : 0;
-}
+int d2t_viterbi_tables_in_smem(int T1, int D) { return tables_in_smem(T1, D) ? 1 : 0; }
+
+#ifdef __CUDACC__
 
 // seq: (T1, D, D) float32 score matrices, read only. init: (D,) float32.
 // step_scores / parents: (T1, D) float32 / int32 global scratch, or both
 // null when d2t_viterbi_tables_in_smem says they fit in shared memory.
-// Outputs, every element written: spans (T*D, 2) int32, scores (T*D,)
-// float32, nodes (T*D, T) int32 (-1 outside a path's span and in unused
-// rows), n_paths (1,) int32, with T = T1 + 1. One block of block_threads(D)
-// threads on `stream`; any D whose per-slot state fits in shared memory (D
-// up to about 27,000). Returns cudaGetLastError() (0 on success).
+// removed / path: (T, ceil(D / 32)) / (T,) int32 global scratch, or both
+// null when d2t_viterbi_bitmap_in_smem says they fit (the kernel zeroes
+// the bitmap itself). Outputs, every element written: spans (T*D, 2)
+// int32, scores (T*D,) float32, nodes (T*D, T) int32 (-1 outside a path's
+// span and in unused rows), n_paths (1,) int32, with T = T1 + 1. One block
+// of block_threads(D) threads on `stream`; D up to 13,632 slots (the
+// per-slot state in shared memory), any T. Returns cudaGetLastError() (0
+// on success), or cudaErrorInvalidValue for what the kernel does not take.
 int d2t_viterbi_multi_link(const void* seq, const void* init, void* step_scores,
-                           void* parents, void* spans, void* scores,
-                           void* nodes, void* n_paths, int T1, int D,
+                           void* parents, void* removed, void* path, void* spans,
+                           void* scores, void* nodes, void* n_paths, int T1, int D,
                            void* stream) {
-  if (T1 < 0 || D < 1 || (step_scores == nullptr) != (parents == nullptr))
+  if (!d2t_viterbi_fits(T1, D) || (step_scores == nullptr) != (parents == nullptr) ||
+      (removed == nullptr) != (path == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool in_smem = step_scores == nullptr;
-  if (in_smem && !d2t_viterbi_tables_in_smem(T1, D))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(seq, T1, D, in_smem);
+  const bool tables_smem = step_scores == nullptr;
+  const bool bitmap_smem = removed == nullptr;
+  const size_t smem = smem_bytes(seq, T1, D, tables_smem, bitmap_smem);
   if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
-  const bool ring = staged(seq, T1, D, in_smem);
-  auto kernel = ring               ? viterbi_multi_link_kernel<true, true>
-                : D <= kMaxThreads ? viterbi_multi_link_kernel<true, false>
-                                   : viterbi_multi_link_kernel<false, false>;
+  const bool ring = staged(seq, T1, D, tables_smem, bitmap_smem);
+  const Kernel kernel = bitmap_smem ? kernel_for<true>(ring, D) : kernel_for<false>(ring, D);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<1, block_threads(D), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(seq), static_cast<const float*>(init),
       static_cast<float*>(step_scores), static_cast<int*>(parents),
+      static_cast<unsigned*>(removed), static_cast<int*>(path),
       static_cast<int*>(spans), static_cast<float*>(scores),
       static_cast<int*>(nodes), static_cast<int*>(n_paths), T1, D);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // __CUDACC__
 
 }  // extern "C"

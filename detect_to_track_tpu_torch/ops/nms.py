@@ -99,7 +99,8 @@ def _nms_lib() -> ctypes.CDLL:
 def nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
     """launch the NMS kernel (csrc/nms.cu) on (..., k, 4) float32 ijhw boxes,
     score-descending, and (..., k) bool CUDA tensors, any k >= 1: the IoU
-    bit mask, then one block per frame sweeps it in index order. Returns
+    bit mask, then one block per frame resolves it 64 slots at a time in
+    index order. Returns
     keep (..., k) bool, bitwise nms_mask_ref's. Counts each call (two
     launches) in `nms_mask_cuda.launches`."""
     if not (boxes.is_cuda and valid.is_cuda) or boxes.device != valid.device:

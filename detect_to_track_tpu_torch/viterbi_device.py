@@ -210,9 +210,9 @@ def viterbi_multi_link_ref(score_seq: torch.Tensor, init_scores: torch.Tensor) -
 
 def _viterbi_lib() -> ctypes.CDLL:
     lib = _build.load("viterbi")
-    lib.d2t_viterbi_multi_link.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.d2t_viterbi_multi_link.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.d2t_viterbi_multi_link.restype = ctypes.c_int
-    for fn in (lib.d2t_viterbi_tables_in_smem, lib.d2t_viterbi_fits):
+    for fn in (lib.d2t_viterbi_tables_in_smem, lib.d2t_viterbi_bitmap_in_smem, lib.d2t_viterbi_fits):
         fn.argtypes = [ctypes.c_int, ctypes.c_int]
         fn.restype = ctypes.c_int
     return lib
@@ -224,15 +224,23 @@ def _tables_in_smem(lib: ctypes.CDLL, t1: int, d: int) -> bool:
     return bool(lib.d2t_viterbi_tables_in_smem(t1, d))
 
 
+def _bitmap_in_smem(lib: ctypes.CDLL, t1: int, d: int) -> bool:
+    """whether the kernel keeps a clip's removed-node bitmap and path in
+    shared memory (else the wrapper passes a global scratch)."""
+    return bool(lib.d2t_viterbi_bitmap_in_smem(t1, d))
+
+
 def viterbi_multi_link_cuda(score_seq: torch.Tensor, init_scores: torch.Tensor) -> DevicePaths:
     """launch the linker kernel (ops/csrc/viterbi.cu) on (T-1, D, D) and
     (D,) float32 CUDA tensors: the whole extraction in one block (G threads
     per slot up to 1024 threads, G = 4 at D 128; ceil(D / 1024) slots a
     thread past 1024 slots). The kernel reads score_seq and init_scores
     and writes neither, so they are passed as they are (made contiguous).
-    D is bounded only by the per-slot shared memory (about 27,000 slots).
-    Returns DevicePaths on the card without waiting for it. Counts each
-    launch in `viterbi_multi_link_cuda.launches`."""
+    D is bounded by the per-slot shared memory (13,632 slots); T only
+    by the card's memory: step tables, removed-node bitmap and path go to a
+    global scratch when they do not fit in shared memory. Returns
+    DevicePaths on the card without waiting for it. Counts each launch in
+    `viterbi_multi_link_cuda.launches`."""
     if not (score_seq.is_cuda and init_scores.is_cuda) or score_seq.device != init_scores.device:
         raise ValueError(
             f"the linker kernel needs CUDA tensors on one device, got {score_seq.device} and {init_scores.device}"
@@ -246,7 +254,7 @@ def viterbi_multi_link_cuda(score_seq: torch.Tensor, init_scores: torch.Tensor) 
     t1, d = score_seq.shape[0], score_seq.shape[1]
     lib = _viterbi_lib()
     if d < 1 or not lib.d2t_viterbi_fits(t1, d):
-        raise ValueError(f"the linker kernel's shared memory does not hold D = {d} slots at T - 1 = {t1}")
+        raise ValueError(f"the linker kernel's shared memory does not hold the per-slot state of D = {d} slots")
     dev = score_seq.device
     t = t1 + 1
     cap = t * d
@@ -258,6 +266,12 @@ def viterbi_multi_link_cuda(score_seq: torch.Tensor, init_scores: torch.Tensor) 
             torch.empty((t1, d), dtype=torch.float32, device=dev),
             torch.empty((t1, d), dtype=torch.int32, device=dev),
         )
+    bitmap = (None, None)
+    if not _bitmap_in_smem(lib, t1, d):
+        bitmap = (
+            torch.empty((t, -(-d // 32)), dtype=torch.int32, device=dev),
+            torch.empty((t,), dtype=torch.int32, device=dev),
+        )
     spans = torch.empty((cap, 2), dtype=torch.int32, device=dev)
     scores = torch.empty((cap,), dtype=torch.float32, device=dev)
     nodes = torch.empty((cap, t), dtype=torch.int32, device=dev)
@@ -266,7 +280,7 @@ def viterbi_multi_link_cuda(score_seq: torch.Tensor, init_scores: torch.Tensor) 
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.d2t_viterbi_multi_link(
             seq.data_ptr(), init.data_ptr(),
-            *(x.data_ptr() if x is not None else None for x in tables),
+            *(x.data_ptr() if x is not None else None for x in (*tables, *bitmap)),
             spans.data_ptr(), scores.data_ptr(), nodes.data_ptr(), n_paths.data_ptr(),
             t1, d, stream,
         )

@@ -210,6 +210,23 @@ def test_linker_kernel_global_tables(cuda, monkeypatch):
     _assert_same_paths(viterbi_device.viterbi_multi_link_cuda(seq, init), ref)
 
 
+@pytest.mark.parametrize("dyadic", [False, True], ids=["uniform", "dyadic"])
+@pytest.mark.parametrize("case", LINK_CASES, ids=str)
+def test_linker_kernel_global_bitmap(cuda, case, dyadic, monkeypatch):
+    """the removed-node bitmap and the path in a global scratch (the layout
+    of clips past about 1,037 frames at D 1500), forced at every LINK_CASES
+    shape, with the step tables wherever the size rule puts them: the plain
+    version's paths bitwise, the caller's scores unchanged."""
+    seq, init = (torch.from_numpy(x).to(cuda) for x in _link_problem(*case, dyadic))
+    seq_before = seq.clone()
+    monkeypatch.setattr(viterbi_device, "_bitmap_in_smem", lambda lib, t1, d: False)
+    got = viterbi_device.viterbi_multi_link_cuda(seq, init)
+    torch.cuda.synchronize()
+    assert torch.equal(seq.view(torch.int32), seq_before.view(torch.int32))
+    _assert_same_paths(got, viterbi_device.viterbi_multi_link_ref(seq, init))
+    assert int(got.n_paths) > 0
+
+
 def test_linker_kernel_matches_native(cuda):
     """T = 64, D = 128 with dyadic scores, against the native host linker
     (f64 sums, exact here): the same paths in the same order."""
@@ -241,10 +258,11 @@ def test_linker_kernel_rejects_bad_input(cuda):
         viterbi_device.viterbi_multi_link_cuda(seq.double(), torch.zeros(4, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError, match="D, D"):
         viterbi_device.viterbi_multi_link_cuda(seq, torch.zeros(3, device=cuda))
-    # D is bounded by the per-slot shared memory (init scores, counts and
-    # the path): 60,000 steps of a 4-slot clip do not fit
+    # D is bounded by the per-slot shared memory (keys, init and masked
+    # scores, counts, three staged bitmap rows): 13,633 slots do not fit, at
+    # any T
     with pytest.raises(ValueError, match="shared memory"):
-        viterbi_device.viterbi_multi_link_cuda(torch.zeros(60000, 4, 4, device=cuda), torch.zeros(4, device=cuda))
+        viterbi_device.viterbi_multi_link_cuda(torch.zeros(0, 13633, 13633, device=cuda), torch.zeros(13633, device=cuda))
 
 
 def test_linker_raises_without_its_kernel(cuda, monkeypatch):

@@ -125,11 +125,13 @@ def test_correlation_ops_are_registered():
 
 # nms.cu's kernels compiled for the CPU: each CUDA block is a set of
 # std::threads run one block after another, __syncthreads a std::barrier,
-# shared memory a buffer, the _rn intrinsics plain float operations (built
-# without FMA contraction). It runs the kernels' own arithmetic, barriers
-# and shared state (warp-level behaviour aside: the kernels have none).
+# shared memory a buffer (dynamic) and static variables (`__shared__`), the
+# _rn intrinsics plain float operations (built without FMA contraction), a
+# shared-memory atomicOr a std::atomic_ref fetch_or. It runs the kernels' own arithmetic, barriers and shared state
+# (warp-level behaviour aside: the kernels have none).
 _CUDA_ON_CPU = r"""
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <thread>
 #include <vector>
@@ -147,6 +149,9 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline unsigned long long atomicOr(unsigned long long* p, unsigned long long v) {
+  return std::atomic_ref<unsigned long long>(*p).fetch_or(v);
+}
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -182,16 +187,17 @@ extern "C" int cpu_nms_mask(const float* boxes, const uint8_t* valid, unsigned l
   run_blocks(dim3(b), sweep_threads(nw), [=] { nms_sweep_kernel(mask, valid, keep, k, nw); });
   return 0;
 }
+extern "C" int cpu_sweep_threads(int nw) { return sweep_threads(nw); }
 """
 
 
-@pytest.fixture(scope="module")
-def nms_kernel_on_cpu(tmp_path_factory):
-    out = tmp_path_factory.mktemp("nms_cpu")
+def _nms_kernel_on_cpu(out, max_threads=None):
+    """ops/csrc/nms.cu built for CPU threads into `out`, with the sweep's
+    default thread cap or `max_threads`."""
     src = (CSRC / "nms.cu").read_text()
     edits = [
         ("#include <cuda_runtime.h>\n", _CUDA_ON_CPU),
-        ("  extern __shared__ unsigned long long removed[];\n", "  unsigned long long* removed = g_smem;\n"),
+        ("  extern __shared__ unsigned long long dead[];\n", "  unsigned long long* dead = g_smem;\n"),
         ("namespace {", ""),
         ("}  // namespace", ""),
     ]
@@ -202,11 +208,27 @@ def nms_kernel_on_cpu(tmp_path_factory):
     (out / "nms_cpu.cpp").write_text(src)
     cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(out / "lib.so"),
            str(out / "nms_cpu.cpp"), "-lpthread"]
+    if max_threads is not None:
+        cmd.append(f"-DD2T_NMS_MAX_THREADS={max_threads}")
     proc = subprocess.run(cmd, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out / "lib.so"))
     lib.cpu_nms_mask.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+    lib.cpu_sweep_threads.argtypes = [ctypes.c_int]
     return lib
+
+
+@pytest.fixture(scope="module")
+def nms_kernel_on_cpu(tmp_path_factory):
+    return _nms_kernel_on_cpu(tmp_path_factory.mktemp("nms_cpu"))
+
+
+@pytest.fixture(scope="module")
+def nms_kernel_8_threads(tmp_path_factory):
+    """the sweep built with at most 8 threads a block: at k 1000 (16 words)
+    a thread owns two words, and every thread, thread 0 included, loads
+    diagonal words."""
+    return _nms_kernel_on_cpu(tmp_path_factory.mktemp("nms_cpu_8"), max_threads=8)
 
 
 def _run_on_cpu(lib, boxes, valid, iou):
@@ -241,6 +263,31 @@ def test_nms_kernel_source_on_cpu_threads(nms_kernel_on_cpu, k, iou):
     mask, keep = _run_on_cpu(nms_kernel_on_cpu, boxes, valid, iou)
     np.testing.assert_array_equal(mask, _packed_bits(compute_ious(tb, tb).numpy(), iou))
     np.testing.assert_array_equal(keep, nms.nms_mask_ref(tb, torch.from_numpy(valid), iou).numpy())
+
+
+@pytest.mark.parametrize("iou", [0.3, 0.5])
+def test_nms_sweep_several_words_per_thread(nms_kernel_on_cpu, nms_kernel_8_threads, iou):
+    """the sweep with 8 threads a block at k 1000 (thread 0 walks and loads
+    words too, the other 7 share 64 word updates and the loads) and at the
+    default cap (a walking warp, 4 threads a word for the updates and 128
+    loading the next words: 192 threads for one word, 352 for 48): the
+    keep-mask bitwise nms_mask_ref's, on clustered boxes with random, all
+    and no valid slots (8 threads; the default build runs k 1000 above),
+    and on one dense cluster whose kept slots suppress across many words
+    (both builds)."""
+    assert nms_kernel_8_threads.cpu_sweep_threads(16) == 8
+    assert [nms_kernel_on_cpu.cpu_sweep_threads(n) for n in (1, 16, 48, 1000)] == [192, 224, 352, 1024]
+    k = 1000
+    boxes, valid = _boxes(np.random.RandomState(7), 3, k)
+    valid[1], valid[2] = True, False
+    rng = np.random.RandomState(8)
+    dense = np.concatenate([0.5 + rng.randn(1, k, 2) * 0.05, rng.rand(1, k, 2) * 0.3 + 0.05], -1).astype(np.float32)
+    for bx, vd, libs in ((boxes, valid, [nms_kernel_8_threads]),
+                         (dense, np.ones((1, k), bool), [nms_kernel_8_threads, nms_kernel_on_cpu])):
+        ref = nms.nms_mask_ref(torch.from_numpy(bx), torch.from_numpy(vd), iou).numpy()
+        for lib in libs:
+            np.testing.assert_array_equal(_run_on_cpu(lib, bx, vd, iou)[1], ref)
+    assert not ref.all() and ref[0].sum() > 16  # kept slots in many words, suppressed ones between
 
 
 def test_nms_kernel_iou_rounding_on_cpu_threads(nms_kernel_on_cpu):

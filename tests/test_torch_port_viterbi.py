@@ -311,7 +311,10 @@ def test_kernel_schedule_matches_plain(case):
 # (TMA) a memcpy that then completes its transaction barrier's phase (a
 # counter), a wait on that barrier a blocking wait for the phase's parity to
 # change. It runs the kernel's code, barriers and shared state included, on
-# CPU threads (warp-level behaviour aside: the kernel has none).
+# CPU threads (warp-level behaviour aside: the kernel has none). The source's
+# launcher is nvcc-only (`#ifdef __CUDACC__`); its size queries
+# (d2t_viterbi_fits, d2t_viterbi_bitmap_in_smem, d2t_viterbi_tables_in_smem)
+# are built as they are.
 _CUDA_ON_CPU = r"""
 #include <atomic>
 #include <barrier>
@@ -364,11 +367,12 @@ inline unsigned char smem_raw[1 << 20];
 """
 
 _CPU_LAUNCH = r"""
-extern "C" int cpu_launch(const float* seq, const float* init, float* S, int* P, int* spans, float* scores,
-                          int* nodes, int* n_paths, int T1, int D) {
-  const bool ring = staged(seq, T1, D, S == nullptr);
+extern "C" int cpu_launch(const float* seq, const float* init, float* S, int* P, unsigned* removed, int* path,
+                          int* spans, float* scores, int* nodes, int* n_paths, int T1, int D) {
+  const bool ring = staged(seq, T1, D, S == nullptr, removed == nullptr);
+  const Kernel kernel = removed == nullptr ? kernel_for<true>(ring, D) : kernel_for<false>(ring, D);
   const int nth = block_threads(D);
-  if (smem_bytes(seq, T1, D, S == nullptr) > sizeof(smem_raw)) return 1;
+  if (!fits(D) || smem_bytes(seq, T1, D, S == nullptr, removed == nullptr) > kMaxSmemBytes) return 1;
   std::barrier<> bar(nth);
   g_bar = &bar;
   blockDim.x = nth;
@@ -376,26 +380,25 @@ extern "C" int cpu_launch(const float* seq, const float* init, float* S, int* P,
   for (int i = 0; i < nth; ++i)
     threads.emplace_back([=] {
       threadIdx.x = i;
-      if (ring)
-        viterbi_multi_link_kernel<true, true>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
-      else if (D <= kMaxThreads)
-        viterbi_multi_link_kernel<true, false>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
-      else
-        viterbi_multi_link_kernel<false, false>(seq, init, S, P, spans, scores, nodes, n_paths, T1, D);
+      kernel(seq, init, S, P, removed, path, spans, scores, nodes, n_paths, T1, D);
     });
   for (auto& t : threads) t.join();
   return 0;
 }
 
 extern "C" int cpu_block_threads(int D) { return block_threads(D); }
-extern "C" int cpu_staged(int T1, int D, int tables_in_smem) { return staged(nullptr, T1, D, tables_in_smem); }
+extern "C" int cpu_staged(int T1, int D, int tables_in_smem, int bitmap_in_smem) {
+  return staged(nullptr, T1, D, tables_in_smem, bitmap_in_smem);
+}
 """
 
 
-def _linker_kernel_on_cpu(out, max_threads=None, max_ring_bytes=None):
+def _linker_kernel_on_cpu(out, max_threads=None, max_ring_bytes=None, max_smem_bytes=None):
     """ops/csrc/viterbi.cu built for CPU threads into `out`, with the
-    kernel's default thread cap or `max_threads`, and its default ring
-    budget or `max_ring_bytes` (0: the DP reads the matrices directly)."""
+    kernel's default thread cap or `max_threads`, its default ring budget
+    or `max_ring_bytes` (0: the DP reads the matrices directly), and its
+    default shared-memory budget or `max_smem_bytes` (small: the removed
+    bitmap and the path go to the global scratch at a short clip)."""
     src = (Path(tvd.__file__).parent / "ops" / "csrc" / "viterbi.cu").read_text()
     edits = [
         ("#include <cuda_runtime.h>\n#include <math_constants.h>\n", _CUDA_ON_CPU),
@@ -406,19 +409,23 @@ def _linker_kernel_on_cpu(out, max_threads=None, max_ring_bytes=None):
     for old, new in edits:
         assert old in src, f"viterbi.cu changed: update this emulation ({old.strip()!r} not found)"
         src = src.replace(old, new, 1)
-    src = src[: src.index('extern "C" {')] + _CPU_LAUNCH
-    (out / "viterbi_cpu.cpp").write_text(src)
+    (out / "viterbi_cpu.cpp").write_text(src + _CPU_LAUNCH)
     cmd = ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-o", str(out / "lib.so"), str(out / "viterbi_cpu.cpp")]
     if max_threads is not None:
         cmd.append(f"-DD2T_VITERBI_MAX_THREADS={max_threads}")
     if max_ring_bytes is not None:
         cmd.append(f"-DD2T_VITERBI_MAX_RING_BYTES={max_ring_bytes}")
+    if max_smem_bytes is not None:
+        cmd.append(f"-DD2T_VITERBI_MAX_SMEM_BYTES={max_smem_bytes}")
     proc = subprocess.run(cmd + ["-lpthread"], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out / "lib.so"))
-    lib.cpu_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_int]
+    lib.cpu_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_int]
     lib.cpu_block_threads.argtypes = [ctypes.c_int]
-    lib.cpu_staged.argtypes = [ctypes.c_int] * 3
+    lib.cpu_staged.argtypes = [ctypes.c_int] * 4
+    for fn in (lib.d2t_viterbi_fits, lib.d2t_viterbi_bitmap_in_smem, lib.d2t_viterbi_tables_in_smem):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -442,16 +449,43 @@ def linker_kernel_32_threads(tmp_path_factory):
     return _linker_kernel_on_cpu(tmp_path_factory.mktemp("linker_cpu_32"), max_threads=32)
 
 
-def _run_cpu_kernel(lib, seq, ini, tables_in_smem=True):
-    """one cpu_launch on copies of the problem -> (n, spans, scores, nodes)."""
+# the shared-memory budget of the small-budget build: at D 100 (400
+# threads) the per-slot state takes 8,000 bytes, so the bitmap and the path
+# fit up to 9 frames and a 40-frame clip takes the global scratch
+SMALL_SMEM_BYTES = 8192
+
+
+@pytest.fixture(scope="module")
+def linker_kernel_small_smem(tmp_path_factory):
+    """the kernel built with an 8 KB shared-memory budget: the global
+    bitmap at a short clip, chosen by the kernel's own size rule."""
+    return _linker_kernel_on_cpu(tmp_path_factory.mktemp("linker_cpu_smem"), max_smem_bytes=SMALL_SMEM_BYTES)
+
+
+# (step tables in shared memory, removed bitmap and path in shared memory):
+# every layout the launcher takes
+LAYOUTS = [(True, True), (False, True), (True, False), (False, False)]
+
+
+def _run_cpu_kernel(lib, seq, ini, tables_in_smem=True, bitmap_in_smem=True):
+    """one cpu_launch on copies of the problem -> (n, spans, scores, nodes).
+    tables_in_smem / bitmap_in_smem: False passes a global scratch, None
+    asks the kernel's size rule as the wrapper does. The bitmap scratch
+    starts poisoned: the kernel zeroes it."""
     t1, dd = seq.shape[0], seq.shape[1]
+    if tables_in_smem is None:
+        tables_in_smem = bool(lib.d2t_viterbi_tables_in_smem(t1, dd))
+    if bitmap_in_smem is None:
+        bitmap_in_smem = bool(lib.d2t_viterbi_bitmap_in_smem(t1, dd))
     work = seq.copy()
     tables = [np.zeros((t1, dd), np.float32), np.zeros((t1, dd), np.int32)]
+    bitmap = [np.full((t1 + 1, -(-dd // 32)), 0xA5A5A5A5, np.uint32), np.full(t1 + 1, 7, np.int32)]
     spans = np.full((t1 + 1) * dd * 2, 7, np.int32)
     scores = np.full((t1 + 1) * dd, 7, np.float32)
     nodes = np.full((t1 + 1) * dd * (t1 + 1), 7, np.int32)
     n = np.zeros(1, np.int32)
     ptrs = [None, None] if tables_in_smem else [x.ctypes.data for x in tables]
+    ptrs += [None, None] if bitmap_in_smem else [x.ctypes.data for x in bitmap]
     rc = lib.cpu_launch(work.ctypes.data, ini.ctypes.data, *ptrs, spans.ctypes.data, scores.ctypes.data,
                         nodes.ctypes.data, n.ctypes.data, t1, dd)
     assert rc == 0
@@ -485,54 +519,64 @@ def _link_problems(seed, T, d):
 def test_linker_kernel_source_on_cpu_threads(linker_kernel_on_cpu, case):
     """ops/csrc/viterbi.cu run on CPU threads (G per slot; at even D the DP
     staged through the two-matrix ring, at odd D read from the matrices),
-    with its step tables in shared memory and in a global scratch, on
-    uniform and dyadic padded problems and the exact-0.0 case: the plain
-    version's paths, bitwise."""
+    with its step tables and its removed bitmap and path each in shared
+    memory and in a global scratch, on uniform and dyadic padded problems
+    and the exact-0.0 case: the plain version's paths, bitwise."""
     _assert_cpu_kernel_matches_plain(linker_kernel_on_cpu, *case, ring=True)
+
+
+def _assert_same_as(got, want, rows=None):
+    """(n, spans, scores, nodes) of the kernel against `want`'s first n rows
+    (every row with rows=slice(None)): equal spans and nodes, bitwise
+    scores."""
+    n = want[0]
+    assert got[0] == n
+    rows = slice(n) if rows is None else rows
+    np.testing.assert_array_equal(got[1][rows], want[1][rows])
+    np.testing.assert_array_equal(got[2][rows].view(np.int32), want[2][rows].view(np.int32))
+    np.testing.assert_array_equal(got[3][rows], want[3][rows])
 
 
 def _assert_cpu_kernel_matches_plain(lib, seed, T, d, ring):
     assert lib.cpu_block_threads(d) == _source_groups(d) * d
-    assert all(lib.cpu_staged(T - 1, d, in_smem) == (ring and d % 2 == 0) for in_smem in (0, 1))
+    assert all(lib.cpu_staged(T - 1, d, *layout) == (ring and d % 2 == 0) for layout in LAYOUTS)
     for seq, ini in _link_problems(seed, T, d):
         ref = _device_paths(tvd.viterbi_multi_link_ref(torch.from_numpy(seq), torch.from_numpy(ini)))
-        for tables_in_smem in (True, False):
-            n, spans, scores, nodes = _run_cpu_kernel(lib, seq, ini, tables_in_smem)
-            assert n == ref[0]
-            np.testing.assert_array_equal(spans, ref[1])
-            np.testing.assert_array_equal(scores.view(np.int32), ref[2].view(np.int32))
-            np.testing.assert_array_equal(nodes, ref[3])
+        for layout in LAYOUTS:
+            # every row, the unused ones too, against the poisoned buffers
+            _assert_same_as(_run_cpu_kernel(lib, seq, ini, *layout), ref, rows=slice(None))
 
 
-@pytest.mark.parametrize("case", [(20, 4, 6), (21, 5, 8), (22, 3, 33)], ids=str)
-def test_linker_kernel_takes_nan_and_inf_as_the_masked_scan_does(linker_kernel_on_cpu, case):
-    """scores with NaN, +inf, -inf, negatives and exact ties: the kernel
-    (ring at D 6 and 8, L2 reads at D 33; tables in shared memory and in a
-    global scratch) gives the replay's paths bitwise, the sequential scan
-    of the masked matrices (one source group). Its row-mask fold is exact
-    for any input: a removed row's candidates are never taken."""
-    seed, T, d = case
+def _nan_inf_problems(seed, T, d):
+    """scores drawn from NaN, +inf, -inf, negatives and exact ties."""
     rng = np.random.RandomState(seed)
     vals = np.array([-np.inf, np.inf, np.nan, 0.0, 0.25, 0.5, 1.0, -0.5, 2.0], np.float32)
     for _ in range(4):
         seq = rng.choice(vals, size=(T - 1, d, d), p=[0.2, 0.05, 0.05, 0.1, 0.15, 0.15, 0.15, 0.05, 0.1])
         ini = rng.choice(vals, size=d)
-        seq, ini = seq.astype(np.float32), ini.astype(np.float32)
-        n, spans, scores, nodes = _kernel_replay(seq, ini, 1)
-        for tables_in_smem in (True, False):
-            got = _run_cpu_kernel(linker_kernel_on_cpu, seq, ini, tables_in_smem)
-            assert got[0] == n
-            np.testing.assert_array_equal(got[1][:n], spans)
-            np.testing.assert_array_equal(got[2][:n].view(np.int32), scores.view(np.int32))
-            np.testing.assert_array_equal(got[3][:n], nodes)
+        yield seq.astype(np.float32), ini.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", [(20, 4, 6), (21, 5, 8), (22, 3, 33)], ids=str)
+def test_linker_kernel_takes_nan_and_inf_as_the_masked_scan_does(linker_kernel_on_cpu, case):
+    """scores with NaN, +inf, -inf, negatives and exact ties: the kernel
+    (ring at D 6 and 8, L2 reads at D 33; tables, bitmap and path in shared
+    memory and in a global scratch) gives the replay's paths bitwise, the
+    sequential scan of the masked matrices (one source group). Its row-mask
+    fold is exact for any input: a removed row's candidates are never
+    taken."""
+    for seq, ini in _nan_inf_problems(*case):
+        replay = _kernel_replay(seq, ini, 1)
+        for layout in LAYOUTS:
+            _assert_same_as(_run_cpu_kernel(linker_kernel_on_cpu, seq, ini, *layout), replay)
 
 
 @pytest.mark.parametrize("case", [(0, 4, 6), (9, 10, 33), (12, 4, 40)], ids=str)
 def test_linker_kernel_direct_reads(linker_kernel_direct_reads, case):
     """the kernel without its ring (the DP reads the matrices from L2,
     skipping removed rows by the bitmap word in a register), G per slot,
-    tables in shared memory and in a global scratch: the plain version's
-    paths, bitwise."""
+    tables, bitmap and path in shared memory and in a global scratch: the
+    plain version's paths, bitwise."""
     _assert_cpu_kernel_matches_plain(linker_kernel_direct_reads, *case, ring=False)
 
 
@@ -540,15 +584,18 @@ def test_linker_kernel_direct_reads(linker_kernel_direct_reads, case):
 def test_linker_kernel_leaves_its_input_unchanged(linker_kernel_on_cpu, case):
     """the kernel reads the score matrices and init scores it is given and
     writes neither: the buffers it was launched on are bitwise unchanged,
-    with the step tables in shared memory and in a global scratch."""
+    with the step tables, the bitmap and the path in shared memory and in a
+    global scratch."""
     for seq, ini in _link_problems(*case):
         t1, d = seq.shape[0], seq.shape[1]
         seq_before, ini_before = seq.tobytes(), ini.tobytes()
-        for tables_in_smem in (True, False):
+        for tables_in_smem, bitmap_in_smem in LAYOUTS:
             tables = [np.zeros((t1, d), np.float32), np.zeros((t1, d), np.int32)]
+            bitmap = [np.zeros((t1 + 1, -(-d // 32)), np.uint32), np.zeros(t1 + 1, np.int32)]
             out = [np.zeros((t1 + 1) * d * 2, np.int32), np.zeros((t1 + 1) * d, np.float32),
                    np.zeros((t1 + 1) * d * (t1 + 1), np.int32), np.zeros(1, np.int32)]
             ptrs = [None, None] if tables_in_smem else [x.ctypes.data for x in tables]
+            ptrs += [None, None] if bitmap_in_smem else [x.ctypes.data for x in bitmap]
             linker_kernel_on_cpu.cpu_launch(seq.ctypes.data, ini.ctypes.data, *ptrs, *(x.ctypes.data for x in out), t1, d)
             assert int(out[3][0]) > 0
             assert seq.tobytes() == seq_before and ini.tobytes() == ini_before
@@ -558,8 +605,9 @@ def test_linker_kernel_leaves_its_input_unchanged(linker_kernel_on_cpu, case):
 def test_linker_kernel_several_slots_per_thread(linker_kernel_32_threads, seed):
     """the kernel built with 32 threads per block at D = 100 (4 slots for
     some threads, 3 for others, as D > 1024 gives on the card), dyadic
-    scores with many exact ties, tables in shared memory and in a global
-    scratch: the plain version's paths bitwise, and the native linker's."""
+    scores with many exact ties, tables, bitmap and path in shared memory
+    and in a global scratch: the plain version's paths bitwise, and the
+    native linker's."""
     rng = np.random.RandomState(seed)
     T, d = 8, 100
     dims = rng.randint(d // 2, d + 1, size=T)
@@ -570,17 +618,55 @@ def test_linker_kernel_several_slots_per_thread(linker_kernel_32_threads, seed):
     ini = np.full(d, -np.inf, np.float32)
     ini[: dims[0]] = rng.randint(0, 4, dims[0]) / 4.0
     ref = _device_paths(tvd.viterbi_multi_link_ref(torch.from_numpy(seq), torch.from_numpy(ini)))
-    for tables_in_smem in (True, False):
-        n, spans, scores, nodes = _run_cpu_kernel(linker_kernel_32_threads, seq, ini, tables_in_smem)
-        assert n == ref[0]
-        np.testing.assert_array_equal(spans, ref[1])
-        np.testing.assert_array_equal(scores.view(np.int32), ref[2].view(np.int32))
-        np.testing.assert_array_equal(nodes, ref[3])
+    for layout in LAYOUTS:
+        n, spans, scores, nodes = got = _run_cpu_kernel(linker_kernel_32_threads, seq, ini, *layout)
+        _assert_same_as(got, ref, rows=slice(None))
     # dyadic scores: every DP sum is exact in f32 and f64, so the native
     # linker's trimmed paths are the kernel's
     native = tv.viterbi_multi_link(list(seq.astype(np.float64)), list(ini.astype(np.float64)), use_native=True)
     trimmed = [((int(a), int(b)), float(sc), nd[a : b + 1].tolist()) for (a, b), sc, nd in zip(spans[:n], scores[:n], nodes[:n])]
     _assert_same_paths(trimmed, native)
+
+
+# (seed, T, D, problems): one problem a case, the dyadic one at 40 frames
+# (one CPU thread per CUDA thread, 400 of them, makes it the slow case)
+@pytest.mark.parametrize("case", [(30, 40, 100, slice(1, 2)), (32, 12, 100, slice(0, 1))], ids=str)
+def test_linker_kernel_global_bitmap_by_its_size_rule(linker_kernel_small_smem, case):
+    """the kernel built with an 8 KB shared-memory budget takes the layout
+    its own size rule gives, as the wrapper does: at D 100 the bitmap and
+    the path fit up to 9 frames, so 40 and 12 frames put them (and the
+    tables) in the global scratch. The plain version's paths bitwise, the
+    replay's on NaN / +inf scores, and the input unchanged."""
+    lib = linker_kernel_small_smem
+    seed, T, d, problems = case
+    assert lib.d2t_viterbi_fits(T - 1, d) == 1
+    assert lib.d2t_viterbi_bitmap_in_smem(T - 1, d) == 0 and lib.d2t_viterbi_tables_in_smem(T - 1, d) == 0
+    assert lib.d2t_viterbi_bitmap_in_smem(8, 100) == 1 and lib.d2t_viterbi_bitmap_in_smem(9, 100) == 0
+    for seq, ini in _link_problems(seed, T, d)[problems]:
+        before = seq.tobytes()
+        ref = _device_paths(tvd.viterbi_multi_link_ref(torch.from_numpy(seq), torch.from_numpy(ini)))
+        _assert_same_as(_run_cpu_kernel(lib, seq, ini, None, None), ref, rows=slice(None))
+        assert seq.tobytes() == before
+    seq, ini = next(_nan_inf_problems(seed, min(T, 12), d))
+    _assert_same_as(_run_cpu_kernel(lib, seq, ini, None, None), _kernel_replay(seq, ini, 1))
+
+
+def test_linker_kernel_size_rule(linker_kernel_on_cpu):
+    """the size queries the wrapper asks (d2t_viterbi_fits,
+    d2t_viterbi_bitmap_in_smem), built at Hopper's budget: the bitmap fits
+    in shared memory up to 1,037 frames at D 1500 and 11,059 at D 128;
+    past that the kernel still takes the clip (global bitmap), at any T.
+    The one limit is D: the per-slot state (8 bytes a thread, 16 a slot)
+    and three staged bitmap rows fit up to 13,632 slots."""
+    lib = linker_kernel_on_cpu
+    assert tvd._bitmap_in_smem(lib, 1036, 1500) and not tvd._bitmap_in_smem(lib, 1037, 1500)
+    assert tvd._bitmap_in_smem(lib, 11058, 128) and not tvd._bitmap_in_smem(lib, 11059, 128)
+    for t1, d in ((1100, 1500), (11100, 128), (1600, 1024), (60000, 4), (0, 1)):
+        assert lib.d2t_viterbi_fits(t1, d) == 1, (t1, d)
+    assert not tvd._tables_in_smem(lib, 1100, 1500)
+    for t1 in (0, 3, 100000):
+        assert lib.d2t_viterbi_fits(t1, 13632) == 1 and lib.d2t_viterbi_fits(t1, 13633) == 0
+    assert lib.d2t_viterbi_fits(-1, 4) == 0 and lib.d2t_viterbi_fits(3, 0) == 0
 
 
 def test_linker_kernel_wrapper_takes_only_cuda_tensors():
