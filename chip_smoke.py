@@ -27,7 +27,12 @@ Phases, each printing a line:
      random boxes at IoU 0.3 and 0.5, at k = 1, 63, 64, 65 and 1000, at
      2 x 4096 (all valid, dense clusters) and 1 x 16,384, and against
      nms_np on one frame; its time, its two launches' times, the plain
-     loop's time and the bound.
+     loop's time and the bound. Its first launch alone (the IoU bits,
+     nms_iou_bits_cuda) into a poisoned scratch at the working point: the
+     words at or above the diagonal bitwise compute_ious > t (t = 0.3, 0.5,
+     IoUs of pairs and a float32 step below each; also with NaN, inf,
+     subnormal and negative boxes mixed in), the words below it unwritten;
+     its time against its own bound.
   6. export: export_detector on the slice phase's model at pair_batch
      BATCH_SIZE (torch.export; the program written to a temporary
      directory and deleted after the load), load_detector serving the slice
@@ -87,7 +92,10 @@ the linker kernel alone (a clip-like 22-frame problem at D 128 against its
 plain version, then the clip phase's linking-only cases): a quick check of
 a linker change, not the smoke test. `python3 chip_smoke.py --nms` runs
 the device and build phases and then the NMS kernel alone, held against
-its plain loop and timed at 8 x 3072 and 2 x 4096.
+its plain loop and timed at 8 x 3072 (clustered random boxes and the
+default anchors moved by random offsets) and 2 x 4096, its IoU launch's
+words held as in the nms phase and timed against its own bound, with the
+IoU kernel's SASS instructions an IoU.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -537,6 +545,85 @@ def nms_bound_ms(boxes, valid, keep, iou):
     return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations"), compares
 
 
+def nms_iou_bound_ms(b, k):
+    """least time for the NMS op's first launch alone (the IoU bits) on b
+    frames of k boxes: its IoUs above the diagonal, NMS_IOU_FLOPS each at
+    the card's float32 rate, against the boxes read once and the words at or
+    above the diagonal written once. Returns (ms, "bytes" | "operations",
+    IoUs)."""
+    nw = -(-k // 64)
+    ious = b * k * (k - 1) // 2
+    words = b * sum(nw - i // 64 for i in range(k))
+    t_ops = NMS_IOU_FLOPS * ious / F32_FLOPS * 1e3
+    t_bytes = (b * k * 16 + words * 8) / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else "operations"), ious
+
+
+# boxes (ijhw) that the IoU-bit checks mix into a frame: NaN and +-inf in
+# each field, inf - inf corners, subnormal, zero, negative and huge sizes
+NMS_SPECIAL_BOXES = [
+    [float("nan"), 0.5, 0.2, 0.3], [0.5, float("nan"), 0.2, 0.3], [0.5, 0.5, float("nan"), 0.3],
+    [0.5, 0.5, 0.2, float("nan")], [float("inf"), 0.5, 0.2, 0.3], [0.5, -float("inf"), 0.2, 0.3],
+    [0.5, 0.5, float("inf"), 0.3], [0.5, 0.5, 0.2, float("inf")], [float("inf"), 0.5, float("inf"), 0.3],
+    [0.5, 0.5, 1e-40, 1e-40], [1e-39, 2e-39, 3e-39, 4e-39], [0.5, 0.5, 0.0, 0.0], [0.5, 0.5, -0.2, 0.3],
+    [0.5, 0.5, -0.2, -0.3], [0.5, 0.5, 1e30, 1e30], [3e38, 3e38, 3e38, 3e38],
+]
+
+
+def with_special_boxes(boxes):
+    """a copy of (B, k, 4) boxes with NMS_SPECIAL_BOXES in every 97th slot
+    of each frame (from slot 5 on)."""
+    import torch
+
+    out = boxes.clone()
+    special = torch.tensor(NMS_SPECIAL_BOXES, dtype=torch.float32, device=boxes.device)
+    slots = torch.arange(5, boxes.shape[1], 97, device=boxes.device)
+    out[:, slots] = special[torch.arange(len(slots), device=boxes.device) % len(special)]
+    return out
+
+
+def nms_iou_bits_check(boxes, thresholds) -> int:
+    """the NMS op's first launch alone (nms_iou_bits_cuda) into a poisoned
+    scratch, at each threshold: its words at or above the diagonal bitwise
+    the plain nms_iou_bits_ref's (compute_ious > t, packed), the words below
+    it still poisoned (not written). Returns the words compared."""
+    import torch
+
+    from detect_to_track_tpu_torch.ops.nms import nms_iou_bits_cuda, nms_iou_bits_ref
+
+    b, k = boxes.shape[:2]
+    nw = -(-k // 64)
+    poison = 0x5A5A5A5A5A5A5A5A
+    upper = torch.arange(nw, device=boxes.device)[None] >= (torch.arange(k, device=boxes.device) // 64)[:, None]
+    for t in thresholds:
+        out = torch.full((b, k, nw), poison, dtype=torch.int64, device=boxes.device)
+        nms_iou_bits_cuda(boxes, t, out)
+        ref = nms_iou_bits_ref(boxes, t)
+        torch.cuda.synchronize()
+        if not torch.equal(out[:, upper], ref[:, upper]):
+            raise AssertionError(f"the IoU launch's words differ from compute_ious > {t!r} at {b} x {k}: "
+                                 f"{int((out[:, upper] != ref[:, upper]).sum())} words")
+        if not bool((out[:, ~upper] == poison).all()):
+            raise AssertionError(f"the IoU launch wrote words below the diagonal at {b} x {k}, t = {t!r}")
+    return len(thresholds) * b * int(upper.sum())
+
+
+def thresholds_at_ious(boxes, iou):
+    """iou, and float32 IoUs that compute_ious gives pairs above the
+    diagonal of frame 0 (quantiles 0.1, 0.5, 0.9 of the positive ones) with
+    the float32 step below each."""
+    import torch
+
+    from detect_to_track_tpu_torch.boxes import compute_ious
+
+    ious = compute_ious(boxes[0], boxes[0])
+    pos = ious[torch.ones_like(ious, dtype=torch.bool).triu(1) & (ious > 0)]
+    vals = torch.quantile(pos.double().cpu(), torch.tensor([0.1, 0.5, 0.9], dtype=torch.float64),
+                          interpolation="nearest").float()
+    below = torch.nextafter(vals, torch.zeros_like(vals))
+    return [iou] + [float(x) for pair in zip(vals, below) for x in pair]
+
+
 def _nms_boxes(seed, b, k, n_valid, per_center=12):
     """(b, k, 4) clustered random ijhw boxes on the card (long suppression
     chains; about per_center boxes a cluster), the first n_valid slots of
@@ -564,6 +651,20 @@ def nms_launch_ms(fn) -> dict:
         torch.cuda.synchronize()
     return {_kernel_short(e.key): getattr(e, "self_device_time_total", 0.0) / e.count / 1e3
             for e in prof.key_averages() if "nms_" in e.key}
+
+
+def nms_iou_launch_ms(boxes, iou):
+    """the NMS op's first launch alone (nms_iou_bits_cuda into one scratch),
+    ms per launch by CUDA events, with its own bound: (ms, bound_ms,
+    bound_by, IoUs)."""
+    import torch
+
+    from detect_to_track_tpu_torch.ops.nms import nms_iou_bits_cuda
+
+    b, k = boxes.shape[:2]
+    out = torch.empty((b, k, -(-k // 64)), dtype=torch.int64, device=boxes.device)
+    ms = cuda_time_ms(lambda: nms_iou_bits_cuda(boxes, iou, out))
+    return (ms, *nms_iou_bound_ms(b, k))
 
 
 def phase_nms(smi: str, det):
@@ -600,6 +701,11 @@ def phase_nms(smi: str, det):
     ious = (cfg.EVAL_NMS_IOU_THRESH, cfg.TRAIN_NMS_IOU_THRESH)
     row = None
     for name, (boxes, valid) in inputs.items():
+        words = sum(nms_iou_bits_check(bx, thresholds_at_ious(boxes, iou)) for bx in (boxes, with_special_boxes(boxes))
+                    for iou in ious)
+        log(f"[nms] {name} boxes {tuple(boxes.shape[:2])}: the IoU launch's words bitwise compute_ious > t at or "
+            f"above the diagonal, poison below ({words} words; t = {', '.join(map(str, ious))}, IoUs at 0.1 / 0.5 "
+            f"/ 0.9 and a float32 step below; also with NaN, inf, subnormal and negative boxes mixed in)")
         for iou in ious:
             got = nms_mask_cuda(boxes, valid, iou)
             ref = nms_mask_ref(boxes, valid, iou)
@@ -611,10 +717,13 @@ def phase_nms(smi: str, det):
             plain_ms = cuda_time_ms(lambda: nms_mask_ref(boxes, valid, iou), iters=3, warmup=1)
             bound, by, compares = nms_bound_ms(boxes, valid, got, iou)
             split = nms_launch_ms(lambda: nms_mask_cuda(boxes, valid, iou))
+            iou_ms, iou_bound, iou_by, n_ious = nms_iou_launch_ms(boxes, iou)
             log(f"[nms] {name} boxes {tuple(boxes.shape[:2])}, {int(valid.sum())} eligible, IoU {iou}: kernel = plain "
                 f"loop (bitwise), {int(got.sum())} kept; ms={ms:.4f} (per launch: "
                 f"{', '.join(f'{n} {t:.4f}' for n, t in split.items())}) plain_ms={plain_ms:.3f} "
-                f"bound_ms={bound:.6f} ({by}: {compares} IoU compares); card: {smi}")
+                f"bound_ms={bound:.6f} ({by}: {compares} IoU compares); the IoU launch alone {iou_ms:.4f} ms against "
+                f"its own bound {iou_bound:.6f} ({iou_by}: {n_ious} IoUs above the diagonal), "
+                f"{iou_ms / iou_bound:.1f}x; card: {smi}")
             if row is None:  # the serving path's case: decoded RPN boxes at the eval IoU
                 row = dict(err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     for kk in (1, 63, 64, 65, 1000):
@@ -2024,18 +2133,97 @@ def phase_linker(d: int = 128):
     linker_cases(d)
 
 
-def phase_nms_design(smi: str):
-    """the NMS kernel alone (`--nms`), without the model: at 8 x 3072 slots
-    (3000 eligible) on clustered random boxes and at 2 x 4096 (all valid,
-    dense clusters), IoU 0.3 and 0.5, bitwise the plain loop, with the op's
-    time and each launch's."""
+def _anchor_boxes(seed, b, k, n_valid):
+    """(b, k, 4) boxes as the RPN's decode spreads them, without the model:
+    k of cfg/default.yaml's anchors (38x75 map, its areas and ratios) in a
+    random order a frame, moved by small random offsets; the first n_valid
+    slots of each frame valid."""
+    import numpy as np
     import torch
 
-    from detect_to_track_tpu_torch.ops import nms
+    from detect_to_track_tpu_torch.anchors import build_anchors
+    from detect_to_track_tpu_torch.config import Config
+    from detect_to_track_tpu_torch.encoding import frcnn_box_decode
 
+    cfg = Config()
+    anchors = torch.from_numpy(np.array(build_anchors((38, 75), cfg.ANCHOR_AREAS, cfg.ANCHOR_ASPECT_RATIOS)))
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(np.stack([rng.permutation(len(anchors))[:k] for _ in range(b)]))
+    offsets = torch.from_numpy(rng.standard_normal((b, k, 4)).astype(np.float32) * 0.1)
+    boxes = frcnn_box_decode(anchors[idx], offsets).float().contiguous()
+    valid = torch.arange(k)[None].repeat(b, 1) < n_valid
+    return boxes.cuda(), valid.cuda()
+
+
+def nms_sass_report(lib_path) -> dict:
+    """the SASS (cuobjdump) of each nms_mask_kernel in an NMS kernel library:
+    its instructions, and its hot loop (the backward branch's body with the
+    most instructions) with its count of FMUL (one per IoU: the
+    intersection's product), FCHK (one per IEEE division) and each opcode.
+    Per IoU = the loop's instructions over its FMULs. Returns {kernel:
+    {"instructions", "loop", "fmul", "fchk", "per_iou", "ops"}}."""
+    import re
+
+    from detect_to_track_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs, current = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1) if "nms_mask_kernel" in m.group(1) else None
+            if current:
+                funcs[current] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if current and m:
+            funcs[current].append((int(m.group(1), 16), m.group(2).strip()))
+    names = _demangle(list(funcs))
+    report = {}
+    for sym, ins in funcs.items():
+        best = []
+        for addr, text in ins:
+            br = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+            if br and int(br.group(1), 16) < addr:  # a backward branch closes a loop
+                body = [t for a, t in ins if int(br.group(1), 16) <= a <= addr]
+                best = body if len(body) > len(best) else best
+        ops = {}
+        for text in best:
+            op = text.split()[1] if text.startswith("@") else text.split()[0]
+            ops[op] = ops.get(op, 0) + 1
+        fmul = sum(n for op, n in ops.items() if op.startswith("FMUL"))
+        report[_kernel_short(names[sym])] = {
+            "instructions": len(ins), "loop": len(best), "fmul": fmul,
+            "fchk": sum(n for op, n in ops.items() if op.startswith("FCHK")),
+            "per_iou": len(best) / fmul if fmul else None, "ops": ops}
+    return report
+
+
+def phase_nms_design(smi: str):
+    """the NMS kernel alone (`--nms`), without the model: at 8 x 3072 slots
+    (3000 eligible) on clustered random boxes and on the default anchors
+    moved by random offsets, and at 2 x 4096 (all valid, dense clusters),
+    IoU 0.3 and 0.5, bitwise the plain loop, with the op's time, each
+    launch's and the IoU launch's alone against its own bound; the IoU
+    launch's words bitwise compute_ious > t (also at IoUs and a step below,
+    and with NaN / inf boxes mixed in); the SASS of the IoU kernel."""
+    import torch
+
+    from detect_to_track_tpu_torch.ops import _build, nms
+
+    for name, info in nms_sass_report(_build.library_path("nms")).items():
+        top = ", ".join(f"{op} {n}" for op, n in sorted(info["ops"].items(), key=lambda x: -x[1])[:12])
+        per_iou = f"{info['per_iou']:.2f}" if info["per_iou"] else "n/a"
+        log(f"[nms-sass] {name}: {info['instructions']} instructions; hot loop {info['loop']} ({info['fmul']} FMUL, "
+            f"{info['fchk']} FCHK): {per_iou} an IoU; {top}")
     cases = {"8 x 3072 (3000 eligible)": _nms_boxes(0, 8, 3072, 3000),
+             "8 x 3072 anchors (3000 eligible)": _anchor_boxes(0, 8, 3072, 3000),
              "2 x 4096 (all valid, 64 a cluster)": _nms_boxes(4096, 2, 4096, 4096, 64)}
     for name, (boxes, valid) in cases.items():
+        words = sum(nms_iou_bits_check(bx, thresholds_at_ious(boxes, iou)) for bx in (boxes, with_special_boxes(boxes))
+                    for iou in (0.3, 0.5))
         for iou in (0.3, 0.5):
             ref = nms.nms_mask_ref(boxes, valid, iou)
             got = nms.nms_mask_cuda(boxes, valid, iou)
@@ -2044,8 +2232,11 @@ def phase_nms_design(smi: str):
                 raise AssertionError(f"the NMS kernel differs from the plain loop on {name} at IoU {iou}")
             ms = cuda_time_ms(lambda: nms.nms_mask_cuda(boxes, valid, iou))
             split = nms_launch_ms(lambda: nms.nms_mask_cuda(boxes, valid, iou))
+            iou_ms, iou_bound, iou_by, n_ious = nms_iou_launch_ms(boxes, iou)
             log(f"[nms-design] {name}, IoU {iou}: = plain loop (bitwise), {int(ref.sum())} kept; "
-                f"ms={ms:.4f} (per launch: {', '.join(f'{n} {t:.4f}' for n, t in split.items())}); card: {smi}")
+                f"ms={ms:.4f} (per launch: {', '.join(f'{n} {t:.4f}' for n, t in split.items())}); IoU launch "
+                f"alone {iou_ms:.4f} ms, bound {iou_bound:.6f} ({iou_by}), {iou_ms / iou_bound:.1f}x; IoU words "
+                f"bitwise ({words} words checked); card: {smi}")
 
 
 def main_nms() -> int:

@@ -10,10 +10,17 @@
 // the length of a suppression chain.
 //
 // 1. nms_mask_kernel: bit t of mask[b, i, w] (u64) is set iff j = 64 w + t
-//    > i and IoU(box i, box j) > iou_thresh. One block of 64 threads per
-//    (column word w, row block of 64, frame b): the 64 column boxes are
-//    staged in shared memory, each thread computes its row's word. Words
-//    left of the diagonal block (every j < i) are written as 0.
+//    > i, j < k and IoU(box i, box j) > iou_thresh, for the words at or
+//    above the diagonal (w >= i / 64) only: the sweep reads no other word,
+//    and none is written. One warp per task: a row group (kRows / 2 row
+//    blocks of 64), a column word w at or right of the group's first row
+//    block, and a frame; kIouWarps tasks a block, on a grid of the
+//    triangle's tasks alone (iou_grid). Each warp stages its word's 64
+//    column boxes in shared memory, and each lane holds kRows row boxes in
+//    registers (rows 32 r + lane of the group), so one staged column serves
+//    kRows IoUs. The columns run in chunks of kChunk, unrolled, so every bit
+//    position is a constant. Once a word, the diagonal word keeps only its
+//    bits j > i and the last word its bits j < k.
 // 2. nms_sweep_kernel: one block per frame resolves the slots 64 at a time,
 //    one mask word w after the other, with a `dead` bitset of ceil(k / 64)
 //    words in shared memory (bit set: invalid, past k, suppressed, or, once
@@ -40,26 +47,57 @@
 //      v > w is complete by the walk of v.
 //    keep = ~dead at the end.
 //
-// Bitwise equal to the plain version: the IoU is computed with the same
-// float32 operations in the same order as boxes.compute_ious and
+// Bitwise equal to the plain version: the IoU's terms are computed with the
+// same float32 operations in the same order as boxes.compute_ious and
 // ijhw_to_ijij (corners ij -/+ hw / 2; max / min; clamp(hi - lo, 0); inter
 // = dh * dw; union = (h_a * w_a + h_b * w_b) - inter; IoU 0 where union <=
-// 0; NaN propagates through max, min and clamp as torch's do), each one
-// correctly rounded by an _rn intrinsic: the build allows FMA contraction,
-// which would round h_a * w_a + h_b * w_b differently. The threshold is
-// compared in float32, as torch compares a float32 tensor with a Python
-// float.
+// 0), each one correctly rounded by an _rn intrinsic: the build allows FMA
+// contraction, which would round h_a * w_a + h_b * w_b differently. The
+// threshold is compared in float32, as torch compares a float32 tensor with
+// a Python float. Two rewrites keep every bit with fewer instructions:
+// - NaN. torch's max, min and clamp propagate NaN; fmaxf and fminf drop
+//   it. A box with a NaN corner has IoU 0 with every box in compute_ious
+//   (the NaN reaches inter, so union is NaN and union > 0 is false).
+//   Staging gives such a box a NaN area, so its union is NaN here too,
+//   whatever fmaxf and fminf make of its corners. Between boxes without a
+//   NaN corner, fmaxf and fminf equal torch's ops up to the sign of a zero,
+//   which the subtraction, the clamp and the compares lose. A NaN that
+//   torch makes inside the clamp (inf - inf: both corners +inf, or both
+//   -inf) gives IoU 0 there; here dh is 0, so inter is 0 or NaN and the
+//   IoU is 0 too. The bit is (0 > t) in both forms.
+// - The division. For t a float in [2^-125, FLT_MAX], RN(inter / uni) > t
+//   iff the quotient is above m = t + h, the midpoint between t and the
+//   next float up (h, half t's ulp, is a power of 2: product_half_ulp). The
+//   quotient of two floats never equals m (m needs 25 significant bits).
+//   For a finite uni > 0 that is x - h uni > 0, with x = inter - t uni.
+//   d = fma(-t, uni, inter) rounds x once, e = fma(-h, uni, d) rounds d - h
+//   uni once, and rounding is monotone. Where |e| >= FLT_MIN, the sign of e
+//   is the sign of x - h uni: where h uni is a float, d and x lie on the
+//   same side of it; where it is below FLT_MIN, d lies more than a
+//   subnormal step from it, which x cannot cross; where it is past
+//   FLT_MAX, it is above both. So the bit is uni > 0 && e > 0. A union
+//   that is NaN, infinite or not positive gives 0 here, as the division
+//   does. A row whose word has any |e| < FLT_MIN (a quotient within about
+//   2^-49 of m, relative, or a tiny union) takes the division for that
+//   word. A threshold outside [2^-125, FLT_MAX] (negative, 0, tiny, inf,
+//   NaN) takes the division for every pair (nms_mask_kernel<false>).
 //
-// What bounds it: at the working point (8 frames x 3072 slots) the IoUs
-// are about 0.6 GFLOP, microseconds at the card's float32 rate, and the
-// inputs and the keep-mask are 0.4 MB. The mask (B k^2 / 8 bytes, 9.4 MB)
-// stays in L2. The sweep is a chain of dependent steps and bound by
-// latency: per 64-slot word, thread 0's walk (64 dependent steps of a few
-// register operations) and one barrier; the next words' loads and the later
-// words' updates (one L2 round trip) run under the walk.
+// What bounds it: at the working point (8 frames x 3072 slots) the IoU
+// launch computes the 37.7 M IoUs above the diagonal, about 0.5 GFLOP and
+// 8 us at the card's float32 rate; the instructions it issues for them
+// bound it (the geometry, two FMAs, two compares and a bit an IoU). The
+// inputs and the keep-mask are 0.4 MB; the words it writes (4.8 MB of the
+// B k^2 / 8 byte mask) stay in L2. The sweep is a chain of dependent steps
+// and bound by latency: per 64-slot word, thread 0's walk (64 dependent
+// steps of a few register operations) and one barrier; the next words'
+// loads and the later words' updates (one L2 round trip) run under the
+// walk.
 
 #include <cuda_runtime.h>
 
+#include <cfloat>
+#include <climits>
+#include <cmath>
 #include <cstddef>
 #include <cstdint>
 
@@ -67,6 +105,15 @@
 // so that a thread owns several words
 #ifndef D2T_NMS_MAX_THREADS
 #define D2T_NMS_MAX_THREADS 1024
+#endif
+// rows a lane of the IoU launch holds (even: a warp's rows fill whole
+// 64-row blocks) and warps, each one task, a block; the CPU tests build 4
+// rows a lane and one warp a block besides
+#ifndef D2T_NMS_IOU_ROWS
+#define D2T_NMS_IOU_ROWS 2
+#endif
+#ifndef D2T_NMS_IOU_WARPS
+#define D2T_NMS_IOU_WARPS 4
 #endif
 
 namespace {
@@ -82,6 +129,13 @@ constexpr size_t kSweepStaticBytes = 4 * kWordBits * sizeof(unsigned long long);
 // kept slots (so its loads issue at once)
 constexpr int kSplit = 4;
 constexpr int kSplitBits = kWordBits / kSplit;
+constexpr int kWarp = 32;
+constexpr int kRows = D2T_NMS_IOU_ROWS;
+static_assert(kRows >= 2 && kRows % 2 == 0, "a warp's rows fill whole 64-row blocks");
+constexpr int kGroupBlocks = kRows / 2;  // 64-row blocks of a row group
+constexpr int kIouWarps = D2T_NMS_IOU_WARPS;
+constexpr int kIouThreads = kIouWarps * kWarp;
+constexpr int kChunk = 32;  // columns unrolled a step
 
 // threads of a sweep block: the walking warp, kSplit per bitset word for
 // the updates and 128 that load the next word's diagonal and super-diagonal
@@ -91,57 +145,165 @@ int sweep_threads(int nw) {
   return n < kMaxThreads ? n : kMaxThreads;
 }
 
-// torch.maximum / torch.minimum / clamp(min=0): NaN in, NaN out
-__device__ __forceinline__ float max_nan(float a, float b) { return (a != a || a > b) ? a : b; }
-__device__ __forceinline__ float min_nan(float a, float b) { return (a != a || a < b) ? a : b; }
-__device__ __forceinline__ float clamp0_nan(float x) { return (x != x || x > 0.0f) ? x : 0.0f; }
+// IoU tasks of a frame before row group g: group g' takes the column words
+// g' kGroupBlocks to nw - 1
+__host__ __device__ inline long long tasks_before(long long g, int nw) {
+  return g * nw - kGroupBlocks * g * (g - 1) / 2;
+}
 
-struct Corners {
-  float i0, j0, i1, j1, area;
+long long iou_tasks(int nw) { return tasks_before((nw + kGroupBlocks - 1) / kGroupBlocks, nw); }
+
+// task -> its row group g and column word w: the tasks run group by group,
+// group g's over the words g kGroupBlocks to nw - 1. tasks_before(g) is
+// (nw + kGroupBlocks / 2) g - kGroupBlocks g^2 / 2: its root, then exact
+// steps
+__host__ __device__ inline void task_tile(int task, int nw, int& g, int& w) {
+  const int groups = (nw + kGroupBlocks - 1) / kGroupBlocks;
+  const float s = nw + 0.5f * kGroupBlocks;
+  g = static_cast<int>((s - sqrtf(fmaxf(s * s - 2.0f * kGroupBlocks * task, 0.0f))) / kGroupBlocks);
+  g = g < 0 ? 0 : g < groups ? g : groups - 1;
+  while (g > 0 && tasks_before(g, nw) > task) --g;
+  while (tasks_before(g + 1, nw) <= task) ++g;
+  w = g * kGroupBlocks + static_cast<int>(task - tasks_before(g, nw));
+}
+
+// the IoU launch's grid: kIouWarps tasks a block along x, the frames along
+// y (kIouThreads threads a block)
+dim3 iou_grid(int b, int nw) {
+  return dim3(static_cast<unsigned>((iou_tasks(nw) + kIouWarps - 1) / kIouWarps), static_cast<unsigned>(b));
+}
+
+// h, half the ulp of t, where the product test is exact (t in [2^-125,
+// FLT_MAX]: h is a float, at least 2^-149); 0 elsewhere, where the division
+// decides every pair
+float product_half_ulp(float t) {
+  if (!(t >= 0x1p-125f && t <= FLT_MAX)) return 0.0f;
+  int e;
+  std::frexp(t, &e);  // t in [2^(e - 1), 2^e): ulp 2^(e - 24)
+  return std::ldexp(1.0f, e - 25);
+}
+
+struct alignas(16) Corners {
+  float i0, j0, i1, j1;
 };
 
-// ijhw_to_ijij and box_areas of one box
-__device__ __forceinline__ Corners corners(const float* box) {
+struct Box {
+  Corners c;
+  float area;
+};
+
+// ijhw_to_ijij and box_areas of one box; a NaN area where a corner is NaN
+__device__ __forceinline__ Box load_box(const float* box) {
   const float hh = __fdiv_rn(box[2], 2.0f);
   const float hw = __fdiv_rn(box[3], 2.0f);
-  return {__fsub_rn(box[0], hh), __fsub_rn(box[1], hw), __fadd_rn(box[0], hh), __fadd_rn(box[1], hw),
-          __fmul_rn(box[2], box[3])};
+  Box x{{__fsub_rn(box[0], hh), __fsub_rn(box[1], hw), __fadd_rn(box[0], hh), __fadd_rn(box[1], hw)},
+        __fmul_rn(box[2], box[3])};
+  if (x.c.i0 != x.c.i0 || x.c.j0 != x.c.j0 || x.c.i1 != x.c.i1 || x.c.j1 != x.c.j1) x.area = nanf("");
+  return x;
 }
 
-// compute_ious(a, b) > thresh, in compute_ious's operations and order
-__device__ __forceinline__ bool iou_above(const Corners& a, const Corners& b, float thresh) {
-  const float dh = clamp0_nan(__fsub_rn(min_nan(a.i1, b.i1), max_nan(a.i0, b.i0)));
-  const float dw = clamp0_nan(__fsub_rn(min_nan(a.j1, b.j1), max_nan(a.j0, b.j0)));
-  const float inter = __fmul_rn(dh, dw);
-  const float uni = __fsub_rn(__fadd_rn(a.area, b.area), inter);
-  const float iou = uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f;
-  return iou > thresh;
+// compute_ious(a, b)'s intersection and union, in its operations and
+// order, with fmaxf / fminf (see above)
+__device__ __forceinline__ void overlap(const Box& a, const Corners& b, float b_area, float& inter, float& uni) {
+  const float dh = fmaxf(__fsub_rn(fminf(a.c.i1, b.i1), fmaxf(a.c.i0, b.i0)), 0.0f);
+  const float dw = fmaxf(__fsub_rn(fminf(a.c.j1, b.j1), fmaxf(a.c.j0, b.j0)), 0.0f);
+  inter = __fmul_rn(dh, dw);
+  uni = __fsub_rn(__fadd_rn(a.area, b_area), inter);
 }
 
-__global__ void __launch_bounds__(kWordBits)
-nms_mask_kernel(const float* __restrict__ boxes, unsigned long long* __restrict__ mask, int k, int nw,
-                float thresh) {
-  __shared__ Corners cols[kWordBits];
-  const int w = blockIdx.x, rb = blockIdx.y, b = blockIdx.z;
-  const int t = threadIdx.x;
-  const int i = rb * kWordBits + t;
-  const float* fb = boxes + static_cast<size_t>(b) * k * 4;
-  const size_t out = (static_cast<size_t>(b) * k + i) * nw + w;
-  if (w < rb) {  // every column j < i
-    if (i < k) mask[out] = 0ull;
-    return;
-  }
-  const int j = w * kWordBits + t;
-  if (j < k) cols[t] = corners(fb + static_cast<size_t>(j) * 4);
-  __syncthreads();
-  if (i >= k) return;
-  const Corners a = corners(fb + static_cast<size_t>(i) * 4);
-  const int n = min(kWordBits, k - w * kWordBits);
+__device__ __forceinline__ bool above_by_division(float inter, float uni, float thresh) {
+  return (uni > 0.0f ? __fdiv_rn(inter, uni) : 0.0f) > thresh;
+}
+
+// row a's word against the 64 staged columns, by the division
+__device__ unsigned long long word_by_division(const Box& a, const Corners* cols, const float* areas, float thresh) {
   unsigned long long bits = 0ull;
-  for (int c = 0; c < n; ++c) {
-    if (w * kWordBits + c > i && iou_above(a, cols[c], thresh)) bits |= 1ull << c;
+  for (int c = 0; c < kWordBits; ++c) {
+    float inter, uni;
+    overlap(a, cols[c], areas[c], inter, uni);
+    if (above_by_division(inter, uni, thresh)) bits |= 1ull << c;
   }
-  mask[out] = bits;
+  return bits;
+}
+
+// kProduct: the product test (half_ulp = product_half_ulp(thresh) > 0);
+// else the division for every pair
+template <bool kProduct>
+__global__ void __launch_bounds__(kIouThreads)
+nms_mask_kernel(const float* __restrict__ boxes, unsigned long long* __restrict__ mask, int k, int nw, int tasks,
+                float thresh, float half_ulp) {
+  __shared__ Corners cols[kIouWarps][kWordBits];
+  __shared__ float areas[kIouWarps][kWordBits];
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int b = blockIdx.y;
+  const int task = blockIdx.x * kIouWarps + warp;
+  const bool live = task < tasks;  // a spare warp of the last block only meets the barrier
+  int g = 0, w = 0;  // the task's row group and column word
+  if (live) task_tile(task, nw, g, w);
+  const float* fb = boxes + static_cast<size_t>(b) * k * 4;
+  const Box none{{0.0f, 0.0f, 0.0f, 0.0f}, nanf("")};  // past k: IoU 0 with every box
+  if (live) {
+    for (int u = lane; u < kWordBits; u += kWarp) {
+      const int j = w * kWordBits + u;
+      const Box x = j < k ? load_box(fb + static_cast<size_t>(j) * 4) : none;
+      cols[warp][u] = x.c;
+      areas[warp][u] = x.area;
+    }
+  }
+  __syncthreads();
+  if (!live) return;
+  const Corners* cw = cols[warp];
+  const float* aw = areas[warp];
+  const int i0 = g * kGroupBlocks * kWordBits + lane;  // row r is i0 + 32 r
+  Box a[kRows];
+  unsigned long long bits[kRows];
+  float closest[kRows];  // the least |e| of each row's word (product test)
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = i0 + r * kWarp;
+    a[r] = i < k ? load_box(fb + static_cast<size_t>(i) * 4) : none;
+    bits[r] = 0ull;
+    closest[r] = FLT_MAX;
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < kWordBits; c0 += kChunk) {
+    unsigned chunk[kRows] = {};
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const Corners p = cw[c0 + c];
+      const float pa = aw[c0 + c];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        float inter, uni;
+        overlap(a[r], p, pa, inter, uni);
+        bool bit;
+        if constexpr (kProduct) {
+          const float e = __fmaf_rn(-half_ulp, uni, __fmaf_rn(-thresh, uni, inter));
+          closest[r] = fminf(closest[r], fabsf(e));
+          bit = uni > 0.0f && e > 0.0f;
+        } else {
+          bit = above_by_division(inter, uni, thresh);
+        }
+        if (bit) chunk[r] |= 1u << c;  // one predicated instruction; a shifted bool compiles to three
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) bits[r] |= static_cast<unsigned long long>(chunk[r]) << c0;
+  }
+  const unsigned long long in_k = w == nw - 1 && k % kWordBits ? ~(~0ull << (k % kWordBits)) : ~0ull;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = i0 + r * kWarp;
+    const int rb = g * kGroupBlocks + r / 2;  // the row's 64-row block
+    if (i >= k || rb > w) continue;  // past k, or a word below the diagonal
+    unsigned long long x = bits[r];
+    if (kProduct && closest[r] < FLT_MIN) x = word_by_division(a[r], cw, aw, thresh);
+    if (rb == w) {  // the diagonal word: the columns j > i alone
+      const int t = i % kWordBits;
+      x &= t == kWordBits - 1 ? 0ull : ~0ull << (t + 1);
+    }
+    mask[(static_cast<size_t>(b) * k + i) * nw + w] = x & in_k;
+  }
 }
 
 __global__ void nms_sweep_kernel(const unsigned long long* __restrict__ mask, const uint8_t* __restrict__ valid,
@@ -240,6 +402,27 @@ size_t d2t_nms_sweep_smem_bytes(int k) {
   return sizeof(unsigned long long) * ((k + kWordBits - 1) / kWordBits) + kSweepStaticBytes;
 }
 
+// The IoU launch alone on `stream` (the first of d2t_nms_mask's two; a
+// test hook besides): boxes (b, k, 4) float32 ijhw; mask (b, k, ceil(k /
+// 64)) u64, its words at or above the diagonal (w >= i / 64) written, no
+// other. Returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for shapes it does not take.
+int d2t_nms_iou_bits(const void* boxes, void* mask, int b, int k, float iou_thresh, void* stream) {
+  const int nw = (k + kWordBits - 1) / kWordBits;
+  if (b < 1 || k < 1 || b > 65535 || iou_tasks(nw) > INT_MAX - kIouWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tasks = static_cast<int>(iou_tasks(nw));
+  const float h = product_half_ulp(iou_thresh);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* bx = static_cast<const float*>(boxes);
+  unsigned long long* m = static_cast<unsigned long long*>(mask);
+  if (h > 0.0f)
+    nms_mask_kernel<true><<<iou_grid(b, nw), kIouThreads, 0, s>>>(bx, m, k, nw, tasks, iou_thresh, h);
+  else
+    nms_mask_kernel<false><<<iou_grid(b, nw), kIouThreads, 0, s>>>(bx, m, k, nw, tasks, iou_thresh, h);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // boxes: (b, k, 4) float32 ijhw, score-descending; valid: (b, k) bool as
 // bytes; mask: (b, k, ceil(k / 64)) u64 scratch; keep: (b, k) bool as bytes,
 // every element written. Two launches on `stream`. Returns cudaGetLastError()
@@ -248,13 +431,11 @@ size_t d2t_nms_sweep_smem_bytes(int k) {
 int d2t_nms_mask(const void* boxes, const void* valid, void* mask, void* keep, int b, int k, float iou_thresh,
                  void* stream) {
   const int nw = (k + kWordBits - 1) / kWordBits;
-  if (b < 1 || k < 1 || b > 65535 || nw > 65535 || d2t_nms_sweep_smem_bytes(k) > kMaxSmemBytes)
+  if (b < 1 || k < 1 || b > 65535 || d2t_nms_sweep_smem_bytes(k) > kMaxSmemBytes)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = d2t_nms_sweep_smem_bytes(k) - kSweepStaticBytes;  // the dynamic part
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nms_mask_kernel<<<dim3(nw, nw, b), kWordBits, 0, s>>>(static_cast<const float*>(boxes),
-                                                         static_cast<unsigned long long*>(mask), k, nw, iou_thresh);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = static_cast<cudaError_t>(d2t_nms_iou_bits(boxes, mask, b, k, iou_thresh, stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(nms_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -91,6 +91,9 @@ def _nms_lib() -> ctypes.CDLL:
     lib = _build.load("nms")
     lib.d2t_nms_mask.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     lib.d2t_nms_mask.restype = ctypes.c_int
+    lib.d2t_nms_iou_bits.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                                                             ctypes.c_void_p]
+    lib.d2t_nms_iou_bits.restype = ctypes.c_int
     lib.d2t_nms_sweep_smem_bytes.argtypes = [ctypes.c_int]
     lib.d2t_nms_sweep_smem_bytes.restype = ctypes.c_size_t
     return lib
@@ -99,10 +102,10 @@ def _nms_lib() -> ctypes.CDLL:
 def nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -> torch.Tensor:
     """launch the NMS kernel (csrc/nms.cu) on (..., k, 4) float32 ijhw boxes,
     score-descending, and (..., k) bool CUDA tensors, any k >= 1: the IoU
-    bit mask, then one block per frame resolves it 64 slots at a time in
-    index order. Returns
-    keep (..., k) bool, bitwise nms_mask_ref's. Counts each call (two
-    launches) in `nms_mask_cuda.launches`."""
+    bit mask (its words at or above the diagonal alone), then one block per
+    frame resolves it 64 slots at a time in index order. Returns keep
+    (..., k) bool, bitwise nms_mask_ref's. Counts each call (two launches)
+    in `nms_mask_cuda.launches`."""
     if not (boxes.is_cuda and valid.is_cuda) or boxes.device != valid.device:
         raise ValueError(f"the NMS kernel needs CUDA tensors on one device, got {boxes.device} and {valid.device}")
     if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
@@ -136,6 +139,45 @@ def nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float) -
 
 
 nms_mask_cuda.launches = 0
+
+
+def nms_iou_bits_ref(boxes: torch.Tensor, iou_thresh: float) -> torch.Tensor:
+    """the plain version of nms_iou_bits_cuda: (B, k, 4) boxes -> (B, k,
+    ceil(k / 64)) int64 words, bit t of word w of row i set iff j = 64 w +
+    t > i, j < k and compute_ious > iou_thresh (the words below the
+    diagonal are 0)."""
+    b, k = boxes.shape[:2]
+    nw = -(-k // 64)
+    upper = torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
+    bits = torch.zeros(b, k, nw * 64, dtype=torch.bool, device=boxes.device)
+    bits[..., :k] = (compute_ious(boxes, boxes) > iou_thresh) & upper
+    weights = torch.ones(64, dtype=torch.int64, device=boxes.device) << torch.arange(64, device=boxes.device)
+    return (bits.view(b, k, nw, 64).to(torch.int64) * weights).sum(-1)  # distinct bits: the sum is their OR
+
+
+def nms_iou_bits_cuda(boxes: torch.Tensor, iou_thresh: float, out: torch.Tensor) -> torch.Tensor:
+    """a test hook, not on the main path: the NMS kernel's first launch alone
+    (the IoU bits) on (B, k, 4) float32 ijhw CUDA boxes into `out`, a
+    (B, k, ceil(k / 64)) int64 tensor on their device. Bit t of word w of
+    row i, for the words at or above the diagonal (w >= i // 64), is set
+    iff j = 64 w + t > i, j < k and compute_ious > iou_thresh; the words
+    below the diagonal are left as they were. Returns `out`; counts no
+    launch."""
+    if not boxes.is_cuda or boxes.dtype != torch.float32 or boxes.dim() != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"expected (B, k, 4) float32 CUDA boxes, got {boxes.dtype} {tuple(boxes.shape)} on "
+                         f"{boxes.device}")
+    b, k = boxes.shape[:2]
+    if out.device != boxes.device or out.dtype != torch.int64 or out.shape != (b, k, -(-k // 64)) \
+            or not out.is_contiguous():
+        raise ValueError(f"expected a contiguous ({b}, {k}, {-(-k // 64)}) int64 scratch on {boxes.device}, got "
+                         f"{out.dtype} {tuple(out.shape)} on {out.device}")
+    flat_boxes = boxes.contiguous()
+    with torch.cuda.device(boxes.device):
+        stream = torch.cuda.current_stream(boxes.device).cuda_stream
+        err = _nms_lib().d2t_nms_iou_bits(flat_boxes.data_ptr(), out.data_ptr(), b, k, iou_thresh, stream)
+    if err != 0:
+        raise RuntimeError(f"NMS IoU launch failed: CUDA error {err}")
+    return out
 
 
 @torch.library.custom_op("d2t::nms_mask", mutates_args=(), device_types="cpu")

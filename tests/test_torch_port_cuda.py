@@ -12,6 +12,10 @@ import pytest
 import torch
 
 from detect_to_track_tpu_torch import viterbi_device
+from detect_to_track_tpu_torch.anchors import build_anchors
+from detect_to_track_tpu_torch.boxes import compute_ious
+from detect_to_track_tpu_torch.config import Config
+from detect_to_track_tpu_torch.encoding import frcnn_box_decode
 from detect_to_track_tpu_torch.ops import correlation, nms
 from detect_to_track_tpu_torch.viterbi import viterbi_multi_link
 
@@ -320,6 +324,58 @@ def test_nms_kernel_matches_plain(cuda, case, iou):
     assert got.dtype == torch.bool and got.shape == (b, k) and got.is_cuda
     assert torch.equal(got, nms.nms_mask_ref(boxes.to(cuda), valid.to(cuda), iou))
     assert torch.equal(got.cpu(), nms.nms_mask_ref(boxes, valid, iou))
+
+
+def _anchor_problem(seed, b, k):
+    """(b, k, 4) boxes as the RPN's decode spreads them: k of the default
+    configuration's anchors (38x75, its areas and ratios) in a random order
+    a frame, moved by small random offsets."""
+    cfg = Config()
+    anchors = torch.from_numpy(np.array(build_anchors((38, 75), cfg.ANCHOR_AREAS, cfg.ANCHOR_ASPECT_RATIOS)))
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(np.stack([rng.permutation(len(anchors))[:k] for _ in range(b)]))
+    offsets = torch.from_numpy(rng.standard_normal((b, k, 4)).astype(np.float32) * 0.1)
+    return frcnn_box_decode(anchors[idx], offsets).float().contiguous()
+
+
+# NaN and +-inf in each field, inf - inf corners, subnormal, zero, negative
+# and huge sizes
+_SPECIAL_BOXES = [[np.nan, 0.5, 0.2, 0.3], [0.5, np.nan, 0.2, 0.3], [0.5, 0.5, np.nan, 0.3], [0.5, 0.5, 0.2, np.nan],
+                  [np.inf, 0.5, 0.2, 0.3], [0.5, -np.inf, 0.2, 0.3], [0.5, 0.5, np.inf, 0.3], [0.5, 0.5, 0.2, np.inf],
+                  [np.inf, 0.5, np.inf, 0.3], [0.5, 0.5, 1e-40, 1e-40], [1e-39, 2e-39, 3e-39, 4e-39],
+                  [0.5, 0.5, 0.0, 0.0], [0.5, 0.5, -0.2, 0.3], [0.5, 0.5, 1e30, 1e30], [3e38, 3e38, 3e38, 3e38]]
+
+
+@pytest.mark.parametrize("iou", [0.3, 0.5])
+@pytest.mark.parametrize("kind", ["anchors", "random", "special"])
+def test_nms_iou_bits_match_compute_ious(cuda, kind, iou):
+    """the NMS op's first launch alone (nms_iou_bits_cuda) into a poisoned
+    scratch at 8 x 3072: the words at or above the diagonal bitwise
+    nms_iou_bits_ref's (compute_ious > t, packed), the words below it
+    untouched, at t = iou and at IoUs of pairs with the float32 step below
+    each; decoded anchors, clustered random boxes, and random boxes with
+    NaN, inf, subnormal and negative ones mixed in. A bit flipped between a
+    suppressed row and a column would leave keep as it is: this holds every
+    bit."""
+    b, k = 8, 3072
+    boxes = _anchor_problem(0, b, k) if kind == "anchors" else _nms_problem(1, b, k, k)[0]
+    if kind == "special":
+        boxes[:, 5::97] = torch.tensor(_SPECIAL_BOXES, dtype=torch.float32).repeat(32, 1)[: len(range(5, k, 97))]
+    boxes = boxes.to(cuda)
+    ious = compute_ious(boxes[0], boxes[0])
+    pos = ious[torch.ones_like(ious, dtype=torch.bool).triu(1) & (ious > 0)].cpu()
+    vals = pos.sort().values[[len(pos) // 10, len(pos) // 2, len(pos) * 9 // 10]]
+    thresholds = [iou] + [float(x) for v in vals for x in (v, torch.nextafter(v, torch.zeros(())))]
+    nw = -(-k // 64)
+    poison = 0x5A5A5A5A5A5A5A5A
+    upper = torch.arange(nw, device=cuda)[None] >= (torch.arange(k, device=cuda) // 64)[:, None]
+    for t in thresholds:
+        out = torch.full((b, k, nw), poison, dtype=torch.int64, device=cuda)
+        assert nms.nms_iou_bits_cuda(boxes, t, out) is out
+        ref = nms.nms_iou_bits_ref(boxes, t)
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, upper], ref[:, upper]), t
+        assert bool((out[:, ~upper] == poison).all()), t
 
 
 def test_nms_kernel_rejects_bad_input(cuda):
