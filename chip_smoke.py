@@ -15,13 +15,24 @@ Phases, each printing a line:
      from L2; K1 and both backward kernels in both dtypes at d_max 20, 24
      and 32 on a 20x45 map (the forwards tiled in 16 x 16 displacements
      from d_max 17 / 20, the bf16 backward at KS = 4 and 5).
-  4. slice: the full-width detect-and-track path (cfg/default.yaml: ResNet-50,
+  4. psroi: PSROIPool's two kernels (ops/csrc/psroi.cu) at the R-FCN
+     head's shapes (8 frames, 38x75, 256 rois, k 7; the class head's 1519
+     and the box head's 196 channels), both channel layouts and both map
+     layouts (contiguous NHWC, the main path's, checked on the head's own
+     convolutions, and NCHW), rois past the border and empty bins: the
+     forward against the
+     plain einsum form and the backward against autograd through it within
+     1e-5 of the largest magnitude, the backward bitwise the same on a
+     repeat; each kernel's time beside its bound, the plain version's time
+     and one head's memory.
+  5. slice: the full-width detect-and-track path (cfg/default.yaml: ResNet-50,
      608x1200, bf16) with random weights from a seed, through
      Detector.__call__ and Detector.detect_pairs on a batch of BATCH_SIZE
-     pairs (3 corr_fwd and 1 nms_mask launches per call); the kernel
-     launch counters are reset before and read after;
+     pairs (3 corr_fwd, 1 nms_mask and 2 psroi_fwd launches per call); the kernel
+     launch counters are reset before and read after; PSROIPool's maps
+     contiguous NHWC (the train phase checks a step's too);
      the tracks are held against the same run with the plain correlation.
-  5. nms: the NMS kernel (ops/csrc/nms.cu) against its plain fixed-point
+  6. nms: the NMS kernel (ops/csrc/nms.cu) against its plain fixed-point
      loop, keep-masks bitwise, at the working point (8 frames x 3072
      slots, 3000 eligible) on the slice phase's decoded RPN boxes and on
      random boxes at IoU 0.3 and 0.5, at k = 1, 63, 64, 65 and 1000, at
@@ -33,15 +44,16 @@ Phases, each printing a line:
      IoUs of pairs and a float32 step below each; also with NaN, inf,
      subnormal and negative boxes mixed in), the words below it unwritten;
      its time against its own bound.
-  6. export: export_detector on the slice phase's model at pair_batch
+  7. export: export_detector on the slice phase's model at pair_batch
      BATCH_SIZE (torch.export; the program written to a temporary
      directory and deleted after the load), load_detector serving the slice
-     phase's uint8 pairs: 3 corr_fwd and 1 nms_mask launches per served
+     phase's uint8 pairs: 3 corr_fwd, 1 nms_mask and 2 psroi_fwd launches per served
      call, its outputs bitwise Detector.detect_pairs's, served against live
      pairs/s; the same for the HOST_S2D program against the HOST_S2D
      Detector. Prints the export and load seconds and the program's bytes.
-  7. clip: ClipTracker (frame_chunk 8) on a 22-frame clip with the slice
-     phase's Detector: 3 chunks, each one detect_clip call (3 K1 launches)
+  8. clip: ClipTracker (frame_chunk 8) on a 22-frame clip with the slice
+     phase's Detector: 3 chunks, each one detect_clip call (3 K1, 1 NMS
+     and 2 PSROIPool forward launches)
      and the clip's link scores, then one launch of the linker kernel
      (ops/csrc/viterbi.cu); frames/s, device- against host-linked
      tubelets, the kernel against its plain version on the clip's score
@@ -56,30 +68,31 @@ Phases, each printing a line:
      version, detect_clip's
      tracks against the plain correlation, and the call's device time by
      stage.
-  8. train: full-width joint training steps (the same configuration, the
+  9. train: full-width joint training steps (the same configuration, the
      package's seeded init, synthetic frame pairs at INPUT_SHAPE): one
      warm-up step, then
      timed steps with the launch counters reset before and read after;
      finite losses, frozen stages bitwise unchanged, the track loss's
      gradients with respect to c4 and c5 held against the plain
      correlation, and one step's device time by stage.
-  9. trainer: the training entry point at full width (cfg/default.yaml with
+  10. trainer: the training entry point at full width (cfg/default.yaml with
      DATA_ROOT a fixture ILSVRC tree from tools/make_fixture_tree.py,
      TRN_SIZE 16, VAL_SIZE 8, REP_SIZE 2): `train.main` for 16 pairs (one
      epoch of 4 steps, validation, report overlays, checkpoints) with the
      kernel counters reset before and read after, a `--resume` to 24 pairs
      that must restore the saved weights and momentum bitwise, then
      `evaluate.main --all-ckpts` over the rotated checkpoints.
-  10. ddp: data parallelism on the one card, a check of correctness and not
+  11. ddp: data parallelism on the one card, a check of correctness and not
      of scaling: make_parallel_train_step (DistributedDataParallel) at world
      size 1 over NCCL against make_train_step, then two ranks (child
      processes of this script, `--ddp-rank`) sharing the card over gloo: a
      2-pair-per-rank step against the single-process 4-pair step,
      make_parallel_detect against Detector.detect_pairs, and train.main with
      NUM_DEVICES 2 for one epoch (ranks bitwise equal, rank 0 alone writes).
-  11. options: HOST_S2D's Detector against the plain stem, a REMAT step
-     against the plain step, sat against einsum pooling at the R-FCN head's
-     shapes, and checked_loss_fn naming a poisoned loss component.
+  12. options: HOST_S2D's Detector against the plain stem, a REMAT step
+     against the plain step, sat against einsum pooling (the PSROIPool
+     kernels on the card) at the R-FCN head's shapes, and checked_loss_fn
+     naming a poisoned loss component.
 The kernels phase also holds the backward kernels (corr_bwd_fm0,
 corr_bwd_fm1) against autograd through the plain version; the linker
 kernel is held in the clip phase. The script prints
@@ -95,7 +108,8 @@ the device and build phases and then the NMS kernel alone, held against
 its plain loop and timed at 8 x 3072 (clustered random boxes and the
 default anchors moved by random offsets) and 2 x 4096, its IoU launch's
 words held as in the nms phase and timed against its own bound, with the
-IoU kernel's SASS instructions an IoU.
+IoU kernel's SASS instructions an IoU. `python3 chip_smoke.py --psroi` runs
+the device and build phases and then the psroi phase alone.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -422,9 +436,6 @@ def phase_slice(smi: str):
 
     from detect_to_track_tpu_torch.config import load_config
     from detect_to_track_tpu_torch.inference import Detector
-    from detect_to_track_tpu_torch.ops.correlation import corr_fwd_cuda
-    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
-
     cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
     t0 = time.perf_counter()
     model = slice_model(cfg)
@@ -439,17 +450,17 @@ def phase_slice(smi: str):
         f"(set-up {time.perf_counter() - t0:.1f} s)")
 
     def launched(fn):
-        before = corr_fwd_cuda.launches, nms_mask_cuda.launches
+        before = _read_counts()
         out = fn()
         torch.cuda.synchronize()
-        delta = corr_fwd_cuda.launches - before[0], nms_mask_cuda.launches - before[1]
-        if delta != (3, 1):
-            raise AssertionError(f"expected 3 correlation and 1 NMS kernel launches per batched call, got {delta}")
+        delta = {k: v - before[k] for k, v in _read_counts().items()}
+        if delta != _launches(3, 0, 0, 1, 2, 0):
+            raise AssertionError(f"expected 3 correlation, 1 NMS and 2 PSROIPool forward kernel launches per "
+                                 f"batched call, got {delta}")
         return out
 
     # ---- the main path: counters from 0, read right after ----
-    corr_fwd_cuda.launches = 0
-    nms_mask_cuda.launches = 0
+    _zero_counts()
     n_calls = 0
     call_s = []
     for r in range(3):
@@ -470,9 +481,10 @@ def phase_slice(smi: str):
         out = launched(lambda: det.detect_pairs(pairs))
         batch_s.append(time.perf_counter() - t)
         n_calls += 1
-    launches = {"corr_fwd": corr_fwd_cuda.launches, "nms_mask": nms_mask_cuda.launches}
-    if launches != {"corr_fwd": 3 * n_calls, "nms_mask": n_calls}:
+    launches = _read_counts()
+    if launches != _launches(3 * n_calls, 0, 0, n_calls, 2 * n_calls, 0):
         raise AssertionError(f"kernel launches {launches} in {n_calls} batched calls")
+    check_map_layouts("[slice] detect_pairs", lambda: det.detect_pairs(pairs))
 
     d = cfg.max_dets
     shapes = {"confs": (p, 2, d, cfg.N_CLASSES + 1), "boxes": (p, 2, d, 4), "valid": (p, 2, d), "tracks": (p, d, 4)}
@@ -764,7 +776,7 @@ def phase_export(smi: str, det):
     phase's model at pair_batch BATCH_SIZE (into a temporary directory under
     build/, deleted after the load), then load_detector serving the slice
     phase's uint8 pairs, with the kernel counters reset before and read
-    after each served call (3 corr_fwd and 1 nms_mask); its four outputs
+    after each served call (3 corr_fwd, 1 nms_mask, 2 psroi_fwd); its four outputs
     held bitwise against Detector.detect_pairs on the same pairs, and its
     pairs/s beside the live call's. The same for the HOST_S2D program
     (space_to_depth2 frames) against the HOST_S2D Detector. Returns the
@@ -776,13 +788,11 @@ def phase_export(smi: str, det):
 
     from detect_to_track_tpu_torch.export import export_detector, load_detector
     from detect_to_track_tpu_torch.inference import Detector
-    from detect_to_track_tpu_torch.ops.correlation import corr_fwd_cuda
-    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
     from detect_to_track_tpu_torch.utils import space_to_depth2
 
     pairs = slice_pairs(det.cfg)
     p = len(pairs)
-    total = {"corr_fwd": 0, "nms_mask": 0}
+    total = {name: 0 for name in _counters()}
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_export_", dir=ROOT / "build"))
     try:
@@ -803,15 +813,15 @@ def phase_export(smi: str, det):
             torch.cuda.synchronize()
 
             # ---- the main path: counters from 0, read right after ----
-            corr_fwd_cuda.launches = 0
-            nms_mask_cuda.launches = 0
+            _zero_counts()
             got = serve(x)
             torch.cuda.synchronize()
-            launches = {"corr_fwd": corr_fwd_cuda.launches, "nms_mask": nms_mask_cuda.launches}
+            launches = _read_counts()
             for key, v in launches.items():
                 total[key] += v
-            if launches != {"corr_fwd": 3, "nms_mask": 1}:
-                raise AssertionError(f"the served {variant} call launched {launches}, expected 3 corr_fwd, 1 nms_mask")
+            if launches != _launches(3, 0, 0, 1, 2, 0):
+                raise AssertionError(f"the served {variant} call launched {launches}, expected 3 corr_fwd, 1 "
+                                     "nms_mask, 2 psroi_fwd")
 
             ref = live.detect_pairs(pairs)
             diffs = {f: (a.float() - b.float()).abs().max().item() for f, a, b in zip(ref._fields, got, ref)}
@@ -1012,8 +1022,8 @@ def linker_cases(d):
 def phase_clip(smi: str, det):
     """the clip path: ClipTracker(det, frame_chunk=CLIP_CHUNK, min_len=2) on
     CLIP_FRAMES frames, one warm-up call, then two timed calls with the
-    kernel counters reset before and read after (3 K1 launches per chunk, 1
-    linker launch per clip). Then, outside the count: a valid detection in
+    kernel counters reset before and read after (3 K1, 1 NMS and 2 PSROIPool
+    forward launches per chunk, 1 linker launch per clip). Then, outside the count: a valid detection in
     every frame, device- against host-linked tubelets, the linker kernel
     against its plain version on the clip's score matrices and against the
     native linker on a 64-frame linking-only case, detect_clip's tracks
@@ -1024,8 +1034,6 @@ def phase_clip(smi: str, det):
 
     from detect_to_track_tpu_torch import viterbi_device as vd
     from detect_to_track_tpu_torch.clip import ClipTracker
-    from detect_to_track_tpu_torch.ops.correlation import corr_fwd_cuda
-    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
     from detect_to_track_tpu_torch.viterbi import viterbi_multi_link
 
     cfg = det.cfg
@@ -1053,23 +1061,24 @@ def phase_clip(smi: str, det):
     log(f"[clip] warm-up call {(time.perf_counter() - t) * 1e3:.1f} ms")
 
     # ---- the main path: counters from 0, read right after ----
-    counted = (corr_fwd_cuda, vd.viterbi_multi_link_cuda, nms_mask_cuda)
-    for fn in counted:
-        fn.launches = 0
+    def counts():
+        return {**_read_counts(), "viterbi_multi_link": vd.viterbi_multi_link_cuda.launches}
+
+    _zero_counts()
+    vd.viterbi_multi_link_cuda.launches = 0
+    per_call = {**_launches(3 * len(starts), 0, 0, len(starts), 2 * len(starts), 0), "viterbi_multi_link": 1}
     clip_s = []
     for r in range(2):
-        before = [fn.launches for fn in counted]
+        before = counts()
         t = time.perf_counter()
         tubes = tracker(frames)
         torch.cuda.synchronize()
         clip_s.append(time.perf_counter() - t)
-        delta = tuple(fn.launches - b for fn, b in zip(counted, before))
-        if delta != (3 * len(starts), 1, len(starts)):
-            raise AssertionError(f"clip call {r}: launches (corr_fwd, linker, nms) = {delta}, expected "
-                                 f"({3 * len(starts)}, 1, {len(starts)})")
+        delta = {k: v - before[k] for k, v in counts().items()}
+        if delta != per_call:
+            raise AssertionError(f"clip call {r}: launches {delta}, expected {per_call}")
         log(f"[clip] call {r}: {clip_s[-1] * 1e3:.1f} ms, {len(tubes)} tubelets, host upload time {tracker.last_upload_s * 1e3:.1f} ms")
-    launches = {"corr_fwd": corr_fwd_cuda.launches, "viterbi_multi_link": vd.viterbi_multi_link_cuda.launches,
-                "nms_mask": nms_mask_cuda.launches}
+    launches = counts()
     log(f"[clip] kernel launches on the main path: {launches} in 2 clip calls")
     if not tubes:
         raise AssertionError("the clip gave no tubelet")
@@ -1162,15 +1171,13 @@ def phase_train(smi: str, steps: int = 3):
     (ResNet-50, 608x1200, bf16, BATCH_SIZE pairs, FIRST_TRAINABLE_STAGE 3)
     from the seeded init, synthetic pairs at INPUT_SHAPE packed as uint8. One
     warm-up step, then `steps` timed steps with the kernel counters reset
-    before and read after: 3 corr_fwd, 2 corr_bwd_fm0 and 2 corr_bwd_fm1
-    launches per step (c3 comes from frozen stages, so its correlation has
-    no backward). Returns the counts."""
+    before and read after: 3 corr_fwd, 2 corr_bwd_fm0, 2 corr_bwd_fm1, 1
+    nms_mask, 2 psroi_fwd and 2 psroi_bwd launches per step (c3 comes from
+    frozen stages, so its correlation has no backward). Returns the counts."""
     import torch
 
     from detect_to_track_tpu_torch import trainer
     from detect_to_track_tpu_torch.config import load_config
-    from detect_to_track_tpu_torch.ops import correlation as corr
-    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
 
     cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
     p = cfg.BATCH_SIZE
@@ -1198,25 +1205,21 @@ def phase_train(smi: str, steps: int = 3):
     log(f"[train] warm-up step {(time.perf_counter() - t) * 1e3:.1f} ms")
 
     # ---- the main path: counters from 0, read right after ----
-    counters = {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
-                "corr_bwd_fm1": corr.corr_bwd_fm1_cuda, "nms_mask": nms_mask_cuda}
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counts()
     torch.cuda.reset_peak_memory_stats()
     step_s = []
     for i in range(steps):
-        start = [fn.launches for fn in counters.values()]
+        start = _read_counts()
         t = time.perf_counter()
         dtl = step(batches[1 + i])
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
-        delta = [fn.launches - s0 for fn, s0 in zip(counters.values(), start)]
-        if delta != [3, 2, 2, 1]:
-            raise AssertionError(f"step {i}: launches (corr_fwd, corr_bwd_fm0, corr_bwd_fm1, nms_mask) = {delta}, "
-                                 "expected [3, 2, 2, 1]")
+        delta = {k: v - start[k] for k, v in _read_counts().items()}
+        if delta != _launches(3, 2, 2, 1, 2, 2):
+            raise AssertionError(f"step {i}: launches {delta}, expected 3 / 2 / 2 / 1 / 2 / 2")
         o, a, c, r, tr = checked(dtl, f"step {i}")
         log(f"[train] step {i}: {step_s[-1] * 1e3:.1f} ms, losses o {o:.4e} a {a:.4e} c {c:.4e} r {r:.4e} t {tr:.4e}")
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = _read_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if step.steps != steps + 1:
         raise AssertionError(f"{step.steps} updates counted after {steps + 1} steps")
@@ -1232,6 +1235,7 @@ def phase_train(smi: str, steps: int = 3):
         f"steps {[round(x * 1e3, 1) for x in step_s]} ms); peak memory {peak_gib:.2f} GiB; card: {smi}")
 
     train_track_grads(model, cfg, batches[0])
+    check_map_layouts("[train] a training step", lambda: step(batches[1]))
     phase_profile(f"train step x{p}", lambda: step(batches[1]))
     return launches
 
@@ -1274,7 +1278,8 @@ def phase_trainer(smi: str):
     """the training entry point at full width on a fixture ILSVRC tree:
     train.main for 16 pairs (4 steps, 2 validation batches, 2 report pairs)
     with the kernel counters reset before and read after (3 corr_fwd, 2
-    corr_bwd_fm0 and 2 corr_bwd_fm1 launches per step, 3 corr_fwd per
+    corr_bwd_fm0, 2 corr_bwd_fm1, 1 nms_mask, 2 psroi_fwd and 2 psroi_bwd
+    launches per step, 3 corr_fwd, 1 nms_mask and 2 psroi_fwd per
     validation batch and per report pair), then a --resume to 24 pairs that
     must restore the saved weights and momentum bitwise, then evaluate.main
     --all-ckpts over the rotated checkpoints. Returns the counts."""
@@ -1284,8 +1289,6 @@ def phase_trainer(smi: str):
 
     from detect_to_track_tpu_torch import evaluate, train
     from detect_to_track_tpu_torch.config import load_config, save_config
-    from detect_to_track_tpu_torch.ops import correlation as corr
-    from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
     from detect_to_track_tpu_torch.trainer import DetectTrackTrainer, TrainStep
 
     work = ROOT / "build" / "chip_smoke_trainer"
@@ -1305,10 +1308,7 @@ def phase_trainer(smi: str):
         f"{cfg.COMPUTE_DTYPE}, TRN_SIZE {cfg.TRN_SIZE}, VAL_SIZE {cfg.VAL_SIZE}, REP_SIZE {cfg.REP_SIZE}")
 
     # ---- the main path: counters from 0, read right after ----
-    counters = {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
-                "corr_bwd_fm1": corr.corr_bwd_fm1_cuda, "nms_mask": nms_mask_cuda}
-    for fn in counters.values():
-        fn.launches = 0
+    _zero_counts()
     # where the loop's wall time goes: each call of these methods, timed to
     # a device sync. The four trainer methods do not nest; the steps run
     # inside `train`, whose rest is waiting for batches (sampling, JPEG
@@ -1340,9 +1340,9 @@ def phase_trainer(smi: str):
     finally:
         for name, (cls, attr) in targets.items():
             setattr(cls, attr, originals[name])
-    launches = {name: fn.launches for name, fn in counters.items()}
-    expected = {"corr_fwd": 3 * (steps + val_batches + rep_pairs), "corr_bwd_fm0": 2 * steps,
-                "corr_bwd_fm1": 2 * steps, "nms_mask": steps + val_batches + rep_pairs}
+    launches = _read_counts()
+    forwards = steps + val_batches + rep_pairs  # one forward each
+    expected = _launches(3 * forwards, 2 * steps, 2 * steps, forwards, 2 * forwards, 2 * steps)
     log(f"[trainer] train.main: {steps} steps, {val_batches} validation batches, {rep_pairs} report pairs in "
         f"{wall:.2f} s wall = {cfg.TRN_SIZE / wall:.2f} training pairs/s over the whole loop (JPEG decoding, "
         f"validation, report and checkpoints included); card: {smi}")
@@ -1414,14 +1414,17 @@ def phase_trainer(smi: str):
 
 def _counters():
     from detect_to_track_tpu_torch.ops import correlation as corr
+    from detect_to_track_tpu_torch.ops import pooling
     from detect_to_track_tpu_torch.ops.nms import nms_mask_cuda
 
     return {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
-            "corr_bwd_fm1": corr.corr_bwd_fm1_cuda, "nms_mask": nms_mask_cuda}
+            "corr_bwd_fm1": corr.corr_bwd_fm1_cuda, "nms_mask": nms_mask_cuda, "psroi_fwd": pooling.psroi_fwd_cuda,
+            "psroi_bwd": pooling.psroi_bwd_cuda}
 
 
-def _launches(corr_fwd, corr_bwd_fm0, corr_bwd_fm1, nms_mask) -> dict:
-    return {"corr_fwd": corr_fwd, "corr_bwd_fm0": corr_bwd_fm0, "corr_bwd_fm1": corr_bwd_fm1, "nms_mask": nms_mask}
+def _launches(corr_fwd, corr_bwd_fm0, corr_bwd_fm1, nms_mask, psroi_fwd, psroi_bwd) -> dict:
+    return {"corr_fwd": corr_fwd, "corr_bwd_fm0": corr_bwd_fm0, "corr_bwd_fm1": corr_bwd_fm1, "nms_mask": nms_mask,
+            "psroi_fwd": psroi_fwd, "psroi_bwd": psroi_bwd}
 
 
 def _zero_counts() -> None:
@@ -1431,6 +1434,29 @@ def _zero_counts() -> None:
 
 def _read_counts() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def check_map_layouts(what: str, fn) -> None:
+    """run fn with the R-FCN's PSROIPool calls watched; fail unless every
+    call gets contiguous NHWC maps, the layout the psroi phase times as the
+    main path's."""
+    from detect_to_track_tpu_torch.models import rfcn
+
+    seen, pool = [], rfcn.ps_roi_pool
+
+    def watched(fm, *args, **kwargs):
+        seen.append("NHWC" if fm.is_contiguous() else "NCHW" if fm.permute(0, 3, 1, 2).is_contiguous()
+                    else str(fm.stride()))
+        return pool(fm, *args, **kwargs)
+
+    rfcn.ps_roi_pool = watched
+    try:
+        fn()
+    finally:
+        rfcn.ps_roi_pool = pool
+    if not seen or set(seen) != {"NHWC"}:
+        raise AssertionError(f"{what}: PSROIPool got maps of storage {seen}, expected contiguous NHWC")
+    log(f"{what}: PSROIPool's maps contiguous NHWC in all {len(seen)} calls")
 
 
 def _trainable(model) -> dict:
@@ -1475,8 +1501,9 @@ def phase_ddp(smi: str):
     - world size 1, NCCL: make_parallel_train_step (DistributedDataParallel)
       at full width from the train phase's init and batch against
       make_train_step: the losses equal, the updated weights within 1e-2 of
-      each tensor's largest update, 3 / 2 / 2 / 1 kernel launches (corr_fwd,
-      corr_bwd_fm0, corr_bwd_fm1, nms_mask).
+      each tensor's largest update, 3 / 2 / 2 / 1 / 2 / 2 kernel launches
+      (corr_fwd, corr_bwd_fm0, corr_bwd_fm1, nms_mask, psroi_fwd,
+      psroi_bwd).
     - world size 2 on the one card, gloo named explicitly (NCCL refuses two
       ranks on one device): two child processes (ranks) run one step at 2
       pairs per rank against the single-process 4-pair step (losses rtol
@@ -1533,8 +1560,8 @@ def phase_ddp(smi: str):
     log(f"[ddp] world size 1 ({backend}): DDP step {ms:.1f} ms (its first, warm-up included), launches {launches}; "
         f"losses {losses.tolist()} vs make_train_step {ref_losses.tolist()}; weights' largest difference "
         f"{share:.3e} of the tensor's largest update ({worst}; tol 1e-2)")
-    if launches != _launches(3, 2, 2, 1):
-        raise AssertionError(f"world-size-1 DDP step launches {launches}, expected 3 / 2 / 2 / 1")
+    if launches != _launches(3, 2, 2, 1, 2, 2):
+        raise AssertionError(f"world-size-1 DDP step launches {launches}, expected 3 / 2 / 2 / 1 / 2 / 2")
     if not torch.equal(losses, ref_losses):
         raise AssertionError("world-size-1 DDP step losses differ from make_train_step's")
     if not share <= 1e-2:
@@ -1597,7 +1624,7 @@ def phase_ddp(smi: str):
     if not (loss_err <= DDP_LOSS_RTOL and share <= DDP_UPDATE_SHARE):
         raise AssertionError("the 2-rank step disagrees with the single-process step")
     for rk in ranks:
-        if rk["step"]["launches"] != _launches(6, 4, 4, 2):
+        if rk["step"]["launches"] != _launches(6, 4, 4, 2, 4, 4):
             raise AssertionError(f"a rank's two DDP steps launched {rk['step']['launches']}")
     # 2. make_parallel_detect against Detector.detect_pairs: bitwise the
     # ranks' rows as their own calls, and the 4-pair call's valid counts
@@ -1608,7 +1635,7 @@ def phase_ddp(smi: str):
             or ranks[1]["detect"]["digest"] != det["digest"]:
         raise AssertionError(f"make_parallel_detect disagrees with Detector.detect_pairs: {det}")
     for rk in ranks:
-        if rk["detect"]["launches"] != _launches(3, 0, 0, 1):
+        if rk["detect"]["launches"] != _launches(3, 0, 0, 1, 2, 0):
             raise AssertionError(f"a rank's parallel detect launched {rk['detect']['launches']}")
     # 3. train.main with NUM_DEVICES 2
     out = Path(tcfg.OUTPUT_DIR)
@@ -1620,8 +1647,8 @@ def phase_ddp(smi: str):
     steps, val_batches = tcfg.TRN_SIZE // tcfg.BATCH_SIZE, tcfg.VAL_SIZE // tcfg.BATCH_SIZE
     for r, rk in enumerate(ranks):
         rep_pairs = tcfg.REP_SIZE if r == 0 else 0  # rank 0 alone reports
-        calls = steps + val_batches + rep_pairs  # one forward, so 3 K1 and 1 NMS, each
-        expected = _launches(3 * calls, 2 * steps, 2 * steps, calls)
+        calls = steps + val_batches + rep_pairs  # one forward, so 3 K1, 1 NMS and 2 PSROIPool, each
+        expected = _launches(3 * calls, 2 * steps, 2 * steps, calls, 2 * calls, 2 * steps)
         if rk["train"]["launches"] != expected or rk["train"]["steps"] != steps:
             raise AssertionError(f"rank {r}: train.main launches {rk['train']['launches']} != {expected}")
     if ranks[0]["train"]["digest"] != ranks[1]["train"]["digest"]:
@@ -1753,12 +1780,13 @@ def phase_options(smi: str):
       magnitude, and the bf16 Detector on the slice phase's pairs (3 K1 per
       call, finite outputs, the plain stem's valid counts);
     - REMAT: one training step (bf16, 4 pairs) against the plain step from
-      the same weights: the losses equal, 3 / 2 / 2 / 1 launches a step, two
+      the same weights: the losses equal, 3 / 2 / 2 / 1 / 2 / 2 launches a step, two
       more steps timed, the first step's weights
       within 1e-2 of each tensor's largest update, and the track loss's
       gradients wrt layer3 / layer4 within 1e-2 of their largest magnitude;
-    - sat against einsum pooling at the R-FCN head's shapes (38x75,
-      MAX_ROIS, k, BATCH_SIZE pairs), forward and gradient;
+    - sat against einsum pooling (on the card the PSROIPool kernels) at the
+      R-FCN head's shapes (38x75, MAX_ROIS, k, BATCH_SIZE pairs), forward
+      and gradient;
     - checked_loss_fn naming a component made non-finite on purpose.
     Returns the kernel launches of the phase."""
     import torch
@@ -1810,7 +1838,7 @@ def phase_options(smi: str):
     log(f"[options] HOST_S2D Detector (bf16): detect_pairs x{len(pairs)} and __call__, launches {launches}; valid "
         f"per frame {counts_b}, the plain stem's {counts_a}; __call__ {len(boxes0)} frame-0 detections")
     finite = all(bool(torch.isfinite(f).all()) for f in (b.confs, b.boxes, b.tracks))
-    if launches != _launches(6, 0, 0, 2) or counts_a != counts_b or not finite or tracks.shape != (len(boxes0), 4):
+    if launches != _launches(6, 0, 0, 2, 4, 0) or counts_a != counts_b or not finite or tracks.shape != (len(boxes0), 4):
         raise AssertionError("the HOST_S2D Detector's launches, valid counts or outputs are wrong")
     del plain, s2d
 
@@ -1839,7 +1867,7 @@ def phase_options(smi: str):
         results[remat] = (losses, weights)
         log(f"[options] REMAT {remat}: steps 2-3 {ms} ms, launches {launches} in 3 steps, first step's losses "
             f"{losses.tolist()}")
-        if launches != _launches(9, 6, 6, 3):
+        if launches != _launches(9, 6, 6, 3, 6, 6):
             raise AssertionError(f"REMAT {remat} steps launched {launches}")
     share, worst = _update_err(results[True][1], results[False][1], init)
     log(f"[options] REMAT step vs plain step: losses equal {torch.equal(results[True][0], results[False][0])}, "
@@ -1885,7 +1913,7 @@ def phase_options(smi: str):
     del model, state, results, grads
     torch.cuda.empty_cache()
 
-    # ---- sat vs einsum at the R-FCN head's shapes ----
+    # ---- sat vs einsum (the kernels) at the R-FCN head's shapes ----
     fh, fw = cfg.fm_shape
     n_frames, k, n_t = 2 * cfg.BATCH_SIZE, cfg.K, cfg.N_CLASSES + 1
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1903,9 +1931,9 @@ def phase_options(smi: str):
           for impl in ("einsum", "sat")}
     o_err = (outs["sat"] - outs["einsum"]).abs().max().item() / outs["einsum"].abs().max().item()
     g_err = (gs["sat"] - gs["einsum"]).abs().max().item() / gs["einsum"].abs().max().item()
-    log(f"[options] ps_roi_pool sat vs einsum at {n_frames} x {fh}x{fw} x {n_t * k * k} ch, {cfg.MAX_ROIS} rois, "
-        f"k {k}: forward {o_err:.3e}, gradient {g_err:.3e} of the largest magnitude (tol 1e-4); forward ms "
-        f"einsum {ms['einsum']:.3f}, sat {ms['sat']:.3f}; card: {smi}")
+    log(f"[options] ps_roi_pool sat vs einsum (the kernels) at {n_frames} x {fh}x{fw} x {n_t * k * k} ch, "
+        f"{cfg.MAX_ROIS} rois, k {k}: forward {o_err:.3e}, gradient {g_err:.3e} of the largest magnitude (tol 1e-4); "
+        f"forward ms kernel {ms['einsum']:.3f}, sat {ms['sat']:.3f}; card: {smi}")
     if not (o_err <= 1e-4 and g_err <= 1e-4):
         raise AssertionError("sat pooling disagrees with einsum pooling")
     return total
@@ -1972,6 +2000,196 @@ def train_track_grads(model, cfg, batch):
             raise AssertionError(f"the track loss's gradient wrt {name} disagrees between kernels and plain correlation")
 
 
+# PSROIPool's tolerance: the kernels sum a bin (forward) and a channel's
+# terms (backward) in another order than the einsum form, f32 rounding of
+# sums of tens of terms: 1e-5 of the largest magnitude
+PSROI_TOL = 1e-5
+
+
+def psroi_rois(seed, b, r):
+    """(b, r, 4) float32 ijhw rois on the card, proposal-like (centres in
+    [0, 1], sides 0.02-0.62 of the frame), with every 16th past the border
+    (centre within 0.03 of a corner, sides 0.5-1.2) and every 32nd empty
+    (zero height on a pixel boundary, or outside the map)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    rois = np.concatenate([rng.uniform(0.0, 1.0, (b, r, 2)), rng.uniform(0.02, 0.62, (b, r, 2))], -1)
+    past = rois[:, 1::16]
+    past[..., :2] = rng.choice([0.02, 0.98], past[..., :2].shape)
+    past[..., 2:] = rng.uniform(0.5, 1.2, past[..., 2:].shape)
+    rois[:, 1::16] = past
+    rois[:, 3::32] = [0.5, 0.5, 0.0, 0.3]  # zero height at row 19.0 of 38: every bin empty
+    rois[:, 7::32] = [1.4, 0.5, 0.2, 0.2]  # below the map: every bin empty
+    return torch.from_numpy(rois.astype(np.float32)).cuda()
+
+
+def _psroi_bin_pixels(bounds, h, w):
+    """(B, R, k, k) pixels of the map in each bin, 0 where n <= 0 (an empty
+    bin), and the masks (rmask, cmask) of _bounds_masks."""
+    import torch
+
+    from detect_to_track_tpu_torch.ops.pooling import _bounds_masks
+
+    rmask, cmask, numel = _bounds_masks(bounds, h, w, torch.float32)
+    pixels = rmask.sum(-1)[..., :, None] * cmask.sum(-1)[..., None, :]
+    return torch.where(numel > 0, pixels, torch.zeros_like(pixels)), rmask, cmask
+
+
+def psroi_fwd_bound_ms(bounds, n_t, k, paper, h, w):
+    """least time of the forward on these inputs: each map element that a
+    bin of its channel holds (some roi's bin (i, j) for a (t, i, j) that the
+    channel map sends there) read once, the outputs written once, the
+    bounds read once; against an add per pixel of a non-empty bin and
+    target and a division per output (f32). Returns (ms, bound_by)."""
+    import torch
+
+    from detect_to_track_tpu_torch.ops.torch_ref import ps_roi_pool_channel_map
+
+    b, r = bounds.shape[:2]
+    pixels, rmask, cmask = _psroi_bin_pixels(bounds, h, w)
+    cover = (torch.einsum("brih,brjw->bijhw", rmask, cmask) > 0).float().reshape(b, 1, k * k, h * w)
+    needed = torch.zeros(b, n_t * k * k, h * w, device=bounds.device)
+    needed.index_add_(1, ps_roi_pool_channel_map(n_t, k, paper, bounds.device).reshape(-1),
+                      cover.expand(b, n_t, k * k, h * w).reshape(b, n_t * k * k, h * w))
+    nbytes = 4 * (int((needed > 0).sum()) + b * r * n_t * k * k + bounds.numel())
+    ops = float(pixels.sum()) * n_t + b * r * n_t * k * k
+    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / F32_FLOPS * 1e3, "operations"))
+
+
+def psroi_bwd_bound_ms(bounds, n_t, k, h, w):
+    """least time of the backward: the cotangent read once, the map's
+    gradient written once, the bounds read once; against a division and an
+    add per pixel of a non-empty bin and target. Returns (ms, bound_by)."""
+    b, r = bounds.shape[:2]
+    pixels, _, _ = _psroi_bin_pixels(bounds, h, w)
+    nbytes = 4 * (b * r * n_t * k * k + b * h * w * n_t * k * k + bounds.numel())
+    ops = 2.0 * float(pixels.sum()) * n_t
+    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / F32_FLOPS * 1e3, "operations"))
+
+
+def _peak_mib(fn) -> float:
+    """MiB that fn allocates at its peak above what was allocated before."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2**20
+
+
+def phase_psroi(smi: str):
+    """PSROIPool's kernels (ops/csrc/psroi.cu) at the R-FCN head's working
+    shapes (2 * BATCH_SIZE frames, the 38x75 maps, MAX_ROIS proposal-like
+    rois with rois past the border and empty bins, k 7): the class head (31
+    targets, 1519 channels) and the box head (4 targets, 196 channels), each
+    in both channel layouts (the quirk and the paper's) and both map layouts
+    (contiguous NHWC, the main path's: the R-FCN's convolutions run
+    channels-last, checked here on the head itself and in the slice and
+    train phases; and NHWC views of NCHW storage). The forward against the
+    plain einsum form and the backward against autograd through it, within
+    PSROI_TOL of the largest magnitude; empty bins exactly 0; the backward
+    bitwise the same on a repeat and through ps_roi_pool's autograd. Each
+    kernel timed by CUDA events in every layout, beside its bound; at the
+    main path's layouts (contiguous NHWC, the configured channel map) beside
+    the plain version's time and the memory one head's forward and backward
+    take. Outside the main-path launch count. Returns {kernel: [row per
+    head]} and the largest absolute errors."""
+    import torch
+
+    from detect_to_track_tpu_torch.config import load_config
+    from detect_to_track_tpu_torch.models.rfcn import RFCN
+    from detect_to_track_tpu_torch.ops import pooling
+
+    cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
+    fh, fw = cfg.fm_shape
+    b, k, r = 2 * cfg.BATCH_SIZE, cfg.K, cfg.MAX_ROIS
+    rois = psroi_rois(0, b, r)
+    bounds = pooling.psroi_bounds(rois, k, fh, fw)
+    i0, i1, j0, j1 = bounds.unbind(2)
+    empty = (i1 - i0)[..., :, None] * (j1 - j0)[..., None, :] <= 0  # (B, R, k, k)
+    # the head's own maps: its convolutions on a contiguous NHWC c5, as the backbone gives it
+    torch.manual_seed(0)
+    rfcn = RFCN(cfg.N_CLASSES, k=k, paper_channel_layout=cfg.FIX_PSROI_CHANNEL_MAP,
+                dtype=cfg.compute_dtype).cuda()
+    with torch.no_grad():
+        check_map_layouts(f"[psroi] the R-FCN head ({cfg.COMPUTE_DTYPE})",
+                          lambda: rfcn(torch.randn(b, fh, fw, 2048, device="cuda"), rois))
+    del rfcn
+    log(f"[psroi] {b} frames x {fh}x{fw}, {r} rois, k {k}: {int(empty.sum())} of {empty.numel()} bins empty; "
+        f"main path: contiguous NHWC maps, paper layout {cfg.FIX_PSROI_CHANNEL_MAP}; card: {smi}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = {"psroi_fwd": [], "psroi_bwd": []}
+    errs = {"psroi_fwd": 0.0, "psroi_bwd": 0.0}
+    for head, n_t in (("class", cfg.N_CLASSES + 1), ("box", 4)):
+        c = n_t * k * k
+        for paper in (False, True):
+            for nchw in (False, True):
+                base = torch.randn((b, c, fh, fw) if nchw else (b, fh, fw, c), device="cuda", generator=gen)
+                view = (lambda y: y.permute(0, 2, 3, 1)) if nchw else (lambda y: y)  # (B, H, W, C)
+                fm = view(base)
+                got = pooling.psroi_fwd_cuda(fm, bounds, n_t, paper)
+                ref = pooling.ps_roi_pool_plain(fm, bounds, n_t, paper)
+                g = torch.randn(got.shape, device="cuda", generator=gen)
+                x = base.detach().requires_grad_()
+                (want,) = torch.autograd.grad(pooling.ps_roi_pool_plain(view(x), bounds, n_t, paper), x, g)
+                want = view(want)
+                d1 = pooling.psroi_bwd_cuda(g, bounds, n_t, paper, fh, fw)
+                d2 = pooling.psroi_bwd_cuda(g, bounds, n_t, paper, fh, fw)
+                x2 = base.detach().requires_grad_()  # through the op and its autograd, as RFCN.forward calls it
+                out = pooling.ps_roi_pool(view(x2), rois, n_t, k, paper)
+                out.backward(g)
+                torch.cuda.synchronize()
+                f_scale, b_scale = ref.abs().max().item(), want.abs().max().item()
+                f_err, b_err = (got - ref).abs().max().item(), (d1 - want).abs().max().item()
+                errs["psroi_fwd"] = max(errs["psroi_fwd"], f_err)
+                errs["psroi_bwd"] = max(errs["psroi_bwd"], b_err)
+                zeros = bool((got.permute(0, 1, 3, 4, 2)[empty] == 0).all())
+                same = torch.equal(d1, d2) and torch.equal(view(x2.grad), d1) and torch.equal(out, got)
+                layout = f"{head} head, {'paper' if paper else 'quirk'} map, {'NCHW' if nchw else 'NHWC'} storage"
+                if not (f_err <= PSROI_TOL * f_scale and b_err <= PSROI_TOL * b_scale and zeros and same):
+                    raise AssertionError(f"PSROIPool kernels, {layout}: forward err {f_err:.3e} (max|ref| "
+                                         f"{f_scale:.3e}), backward err {b_err:.3e} (max|ref| {b_scale:.3e}), empty "
+                                         f"bins 0 {zeros}, backward repeatable and = autograd's {same}")
+                fwd_ms = cuda_time_ms(lambda: pooling.psroi_fwd_cuda(fm, bounds, n_t, paper))
+                bwd_ms = cuda_time_ms(lambda: pooling.psroi_bwd_cuda(g, bounds, n_t, paper, fh, fw))
+                fb, fby = psroi_fwd_bound_ms(bounds, n_t, k, paper, fh, fw)
+                bb, bby = psroi_bwd_bound_ms(bounds, n_t, k, fh, fw)
+                blocks = pooling._psroi_lib().d2t_psroi_bwd_blocks_per_sm(c, k, r)
+                msg = (f"[psroi] {layout}: forward {fwd_ms:.4f} ms (bound {fb:.4f}, {fby}; err {f_err:.2e}, max|ref| "
+                       f"{f_scale:.2e}), backward {bwd_ms:.4f} ms (bound {bb:.4f}, {bby}; err {b_err:.2e}, max|ref| "
+                       f"{b_scale:.2e}; {blocks} blocks an SM); backward bitwise on a repeat and through autograd")
+                if not nchw and paper == cfg.FIX_PSROI_CHANNEL_MAP:  # the main path's layouts
+                    plain_fwd = cuda_time_ms(lambda: pooling.ps_roi_pool_plain(fm, bounds, n_t, paper), iters=5)
+                    plain_bwd = cuda_time_ms(lambda: pooling.psroi_bwd_ref(g, bounds, n_t, paper, fh, fw), iters=5)
+
+                    def step(pool):
+                        y = base.detach().requires_grad_()
+                        pool(view(y)).backward(g)
+
+                    mem_kernel = _peak_mib(lambda: step(lambda y: pooling.ps_roi_pool(y, rois, n_t, k, paper)))
+                    mem_plain = _peak_mib(lambda: step(lambda y: pooling.ps_roi_pool_plain(y, bounds, n_t, paper)))
+                    # the backward's cost without hits: rois whose row bins
+                    # hold every row and whose column bins lie past the map
+                    no_hit = pooling.psroi_bounds(torch.tensor([0.5, 1.4, 1.0, 0.2], device="cuda").expand(b, r, 4),
+                                                  k, fh, fw)
+                    no_hit_ms = cuda_time_ms(lambda: pooling.psroi_bwd_cuda(g, no_hit, n_t, paper, fh, fw))
+                    rows["psroi_fwd"].append(dict(head=head, ms=fwd_ms, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby))
+                    rows["psroi_bwd"].append(dict(head=head, ms=bwd_ms, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby))
+                    msg += (f"; plain forward {plain_fwd:.4f} ms, plain backward (psroi_bwd_ref) {plain_bwd:.4f} ms; "
+                            f"forward + backward peak {mem_kernel:.1f} MiB (plain {mem_plain:.1f} MiB); backward "
+                            f"with rois that hold no pixel (every row bin held, column bins past the map) "
+                            f"{no_hit_ms:.4f} ms")
+                log(msg)
+                del base, fm, got, ref, g, x, want, d1, d2, x2, out
+    torch.cuda.empty_cache()
+    return rows, errs
+
+
+
 def phase_profile(label, fn, top: int = 15):
     """where the time of one warm call of fn goes on the card:
     torch.profiler's device time by pipeline stage (the port's `d2t::`
@@ -1992,7 +2210,8 @@ def phase_profile(label, fn, top: int = 15):
     events = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in events if e.device_type == cuda and not getattr(e, "is_user_annotation", False)]
-    ops = ("d2t::corr_fwd", "d2t::corr_bwd_fm0", "d2t::corr_bwd_fm1", "d2t::nms_mask")  # nested in stages
+    ops = ("d2t::corr_fwd", "d2t::corr_bwd_fm0", "d2t::corr_bwd_fm1", "d2t::nms_mask", "d2t::psroi_fwd",
+           "d2t::psroi_bwd")  # nested in stages
     stages = [e for e in events if e.device_type != cuda and e.key.startswith("d2t::") and e.key not in ops]
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy = sum(dev_us(e) for e in kernels)
@@ -2012,10 +2231,15 @@ def phase_profile(label, fn, top: int = 15):
             f"{100 * bwd_us / max(busy, 1e-9):5.1f}% of busy, {sum(e.count for e in bwd)} nodes")
     host_reads = sum(e.count for e in events if e.key == "aten::equal")
     log(f"[profile]   torch.equal host reads (the plain NMS loop's iterations; the kernel has none): {host_reads}")
+    # torch's sort-based gather backward: PSROIPool's channel-gather
+    # backward before its kernel, and any other advanced-index backward
+    scatter = [e for e in kernels if "indexing_backward_kernel" in e.key]
+    log(f"[profile]   indexing_backward_kernel: {sum(dev_us(e) for e in scatter) / 1e3:.3f} ms in "
+        f"{sum(e.count for e in scatter)} launches")
     ranked = sorted(kernels, key=dev_us, reverse=True)
     # the top kernels, then the port's own kernels wherever they rank
     for rank, e in enumerate(ranked):
-        if rank < top or "corr_" in e.key or "viterbi" in e.key or "nms_" in e.key:
+        if rank < top or any(name in e.key for name in ("corr_", "viterbi", "nms_", "psroi_")):
             log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / max(busy, 1e-9):5.1f}%  x{e.count:<4d} "
                 f"#{rank + 1:<3d} {e.key[:90]}")
 
@@ -2265,6 +2489,20 @@ def main_linker() -> int:
     return 0
 
 
+def main_psroi() -> int:
+    """`python3 chip_smoke.py --psroi`: the device and build phases, then
+    PSROIPool's kernels alone at the R-FCN head's shapes, held against their
+    plain versions and timed without the model. A quick check of a PSROIPool
+    change; the full run (no arguments) is the smoke test."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(ROOT))
+    smi = phase_device()
+    phase_build()
+    phase_psroi(smi)
+    log(f"[done] psroi phases passed in {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2276,6 +2514,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(pairs=4)
     bwd_rows = phase_bwd_kernels(pairs=4)
+    psroi_rows, psroi_errs = phase_psroi(smi)
     slice_launches, det = phase_slice(smi)
     nms_row = phase_nms(smi, det)
     export_launches = phase_export(smi, det)
@@ -2350,6 +2589,26 @@ def main() -> int:
         "bound_by": nms_row["bound_by"],
         "library_ms": None,
     })
+    # every path counts PSROIPool launches: 2 forwards a batched call, served
+    # call, clip chunk, validation batch and report pair; 2 forwards and 2
+    # backwards a training step
+    psroi_replaces = "detect_to_track_tpu/ops/pooling.py:154 (_ps_roi_pool_einsum, an XLA program of mask matmuls, "
+    for name, what in (("psroi_fwd", "not a Pallas kernel)"),
+                       ("psroi_bwd", "its backward: XLA's transposed matmuls and the channel gather's scatter)")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "detect_to_track_tpu_torch/ops/csrc/psroi.cu",
+            "replaces": psroi_replaces + what,
+            "launches": sum(x[name] for x in (slice_launches, export_launches, clip_launches, train_launches,
+                                              trainer_launches, extra)),
+            "max_abs_err": psroi_errs[name],
+            "ms": sum(r["ms"] for r in psroi_rows[name]),
+            "plain_ms": sum(r["plain_ms"] for r in psroi_rows[name]),
+            "bound_ms": sum(r["bound_ms"] for r in psroi_rows[name]),
+            "bound_by": psroi_rows[name][0]["bound_by"],
+            "library_ms": None,
+        })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2365,4 +2624,6 @@ if __name__ == "__main__":
         sys.exit(main_linker())
     if sys.argv[1:2] == ["--nms"]:
         sys.exit(main_nms())
+    if sys.argv[1:2] == ["--psroi"]:
+        sys.exit(main_psroi())
     sys.exit(main())

@@ -27,6 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "corr_fwd": "corr_fwd.cu", "corr_bwd": "corr_bwd.cu", "viterbi": "viterbi.cu", "nms": "nms.cu",
+    "psroi": "psroi.cu",
 }
 
 NVCC_FLAGS = (

@@ -1,4 +1,5 @@
-"""ROI pooling (port of the JAX package's `ops/pooling.py`), in two forms.
+"""ROI pooling (port of the JAX package's `ops/pooling.py`), in two forms,
+and PSROIPool's hand-written Hopper kernels.
 
 A bin average is a separable mask contraction
 
@@ -11,13 +12,26 @@ scatter in the backward): O(1) per bin whatever the roi's size. Bin
 geometry and quirks follow torch_ref in both forms. Every function takes
 one frame (fm (H, W, C), rois (R, 4)) or a batch of frames (fm (B, H, W,
 C), rois (B, R, 4)).
+
+PSROIPool's einsum form is the plain version of two CUDA kernels
+(`csrc/psroi.cu`, built by nvcc at first use and called through ctypes):
+`ps_roi_pool` calls the registered op `d2t::psroi_fwd` on every device, and
+its autograd formula calls `d2t::psroi_bwd`, a deterministic backward with
+no atomics. On CUDA tensors the ops launch the kernels (float32 maps of any
+strides; other dtypes raise); on CPU tensors they run their plain versions.
+The ops take the bins' integer bounds, computed by torch_ref._bin_bounds on
+the maps' device, so the kernels' geometry is bitwise the plain version's;
+each op has a fake, so `torch.export` traces them.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
+from . import _build
 from .torch_ref import _bin_bounds, _float_type, _range_masks, ps_roi_pool_channel_map
 
 
@@ -36,9 +50,7 @@ def _sat(fm: torch.Tensor) -> torch.Tensor:
 def _sat_bounds(rois: torch.Tensor, r_hw: int, fm_h: int, fm_w: int, clamp_corner: bool):
     """rois (B, R, 4) -> i0, i1, j0, j1 as (B, R, k) int64 and the bins'
     pixel counts (B, R, k, k)."""
-    b, r = rois.shape[:2]
-    bounds = _bin_bounds(rois.reshape(b * r, 4), r_hw, fm_h, fm_w, clamp_corner)
-    i0, i1, j0, j1 = (t.long().reshape(b, r, r_hw) for t in bounds)
+    i0, i1, j0, j1 = psroi_bounds(rois, r_hw, fm_h, fm_w, clamp_corner).long().unbind(2)
     numel = ((i1 - i0)[..., :, None] * (j1 - j0)[..., None, :]).to(torch.float32)
     return i0, i1, j0, j1, numel
 
@@ -54,12 +66,7 @@ def _batched(fm: torch.Tensor, rois: torch.Tensor, frame_ndim: int):
 def _masks(rois: torch.Tensor, r_hw: int, fm_h: int, fm_w: int, clamp_corner: bool, dtype):
     """rois (B, R, 4) -> rmask (B, R, k, H), cmask (B, R, k, W), numel
     (B, R, k, k)."""
-    b, r = rois.shape[:2]
-    i0, i1, j0, j1 = _bin_bounds(rois.reshape(b * r, 4), r_hw, fm_h, fm_w, clamp_corner)
-    rmask = _range_masks(i0, i1, fm_h).reshape(b, r, r_hw, fm_h).to(dtype)
-    cmask = _range_masks(j0, j1, fm_w).reshape(b, r, r_hw, fm_w).to(dtype)
-    numel = ((i1 - i0)[:, :, None] * (j1 - j0)[:, None, :]).to(torch.float32)
-    return rmask, cmask, numel.reshape(b, r, r_hw, r_hw)
+    return _bounds_masks(psroi_bounds(rois, r_hw, fm_h, fm_w, clamp_corner), fm_h, fm_w, dtype)
 
 
 def _average(sums: torch.Tensor, numel: torch.Tensor) -> torch.Tensor:
@@ -133,6 +140,9 @@ def ps_roi_pool(
 
     fm: ([B,] H, W, n_targets * k^2) score maps; rois: ([B,] R, 4).
     paper_layout=False replicates the (t+1)*(i*k+j) channel quirk.
+    impl="einsum": the op `d2t::psroi_fwd` (its backward `d2t::psroi_bwd`):
+    the kernels for CUDA tensors, the plain einsum form for CPU tensors;
+    impl="sat": the summed-area form on any device.
     Returns ([B,] R, n_targets, k, k).
     """
     if fm.shape[-1] != n_targets * r_hw * r_hw:
@@ -145,15 +155,218 @@ def ps_roi_pool(
     if impl == "sat":
         out = _ps_roi_pool_sat(fm, rois, n_targets, r_hw, paper_layout)
         return out[0] if squeeze else out
+    out = psroi_fwd(fm, psroi_bounds(rois, r_hw, fm.shape[1], fm.shape[2]), n_targets, paper_layout)
+    return out[0] if squeeze else out
+
+
+def psroi_bounds(rois: torch.Tensor, r_hw: int, fm_h: int, fm_w: int, clamp_corner: bool = False) -> torch.Tensor:
+    """rois (B, R, 4) -> bin bounds (B, R, 4, k) int32, rows i0, i1, j0, j1
+    (torch_ref._bin_bounds; PSROIPool's geometry has no corner clamp,
+    ROIPool's has)."""
+    b, r = rois.shape[:2]
+    bounds = _bin_bounds(rois.reshape(b * r, 4), r_hw, fm_h, fm_w, clamp_corner)
+    return torch.stack(bounds, dim=1).reshape(b, r, 4, r_hw)
+
+
+def _bounds_masks(bounds: torch.Tensor, fm_h: int, fm_w: int, dtype):
+    """bounds (B, R, 4, k) -> rmask (B, R, k, H), cmask (B, R, k, W), numel
+    (B, R, k, k) float32 (int32 products, as the kernels form them)."""
+    i0, i1, j0, j1 = bounds.unbind(2)
+    rmask = _range_masks(i0, i1, fm_h).to(dtype)
+    cmask = _range_masks(j0, j1, fm_w).to(dtype)
+    numel = ((i1 - i0)[..., :, None] * (j1 - j0)[..., None, :]).to(torch.float32)
+    return rmask, cmask, numel
+
+
+def ps_roi_pool_plain(fm: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool) -> torch.Tensor:
+    """the plain version of psroi_fwd_cuda (the einsum form, differentiable):
+    fm (B, H, W, T k^2), bounds (B, R, 4, k) -> (B, R, T, k, k) in fm's
+    float type (f32, or f64)."""
     _, fm_h, fm_w, _ = fm.shape
+    r_hw = bounds.shape[-1]
     f = fm.to(_float_type(fm.dtype))
-    rmask, cmask, numel = _masks(rois, r_hw, fm_h, fm_w, False, f.dtype)
+    rmask, cmask, numel = _bounds_masks(bounds, fm_h, fm_w, f.dtype)
     # one static channel gather: (B, H, W, T, k, k) indexed by (t, i, j)
     fg = f[..., ps_roi_pool_channel_map(n_targets, r_hw, paper_layout, fm.device)]
     p1 = torch.einsum("brjw,bhwtij->brhtij", cmask, fg)
     sums = torch.einsum("brih,brhtij->brtij", rmask, p1)
-    out = _average(sums, numel[:, :, None])
-    return out[0] if squeeze else out
+    return _average(sums, numel[:, :, None])
+
+
+def psroi_bwd_ref(
+    g: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool, fm_h: int, fm_w: int
+) -> torch.Tensor:
+    """the plain version of psroi_bwd_cuda: the adjoint of ps_roi_pool_plain
+    written out (the average's division, the two einsums transposed, the
+    channel gather's scatter), g (B, R, T, k, k) -> dfm (B, H, W, T k^2),
+    contiguous, in g's float type. Channels no (t, i, j) reaches get 0."""
+    b, _, _, r_hw, _ = g.shape
+    gf = g.to(_float_type(g.dtype))
+    rmask, cmask, numel = _bounds_masks(bounds, fm_h, fm_w, gf.dtype)
+    numel = numel[:, :, None]
+    dsums = torch.where(numel > 0, gf, torch.zeros_like(gf)) / numel.clamp(min=1.0)
+    dp1 = torch.einsum("brih,brtij->brhtij", rmask, dsums)
+    dfg = torch.einsum("brjw,brhtij->bhwtij", cmask, dp1)
+    ch = ps_roi_pool_channel_map(n_targets, r_hw, paper_layout, g.device).reshape(-1)
+    dfm = torch.zeros((b, fm_h, fm_w, n_targets * r_hw * r_hw), dtype=gf.dtype, device=g.device)
+    return dfm.index_add_(-1, ch, dfg.reshape(b, fm_h, fm_w, -1))
+
+
+# ---------------------------------------------------------------- the kernels
+
+
+def _psroi_lib() -> ctypes.CDLL:
+    lib = _build.load("psroi")
+    i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    lib.d2t_psroi_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [i64] * 4 + [i32, ptr]
+    lib.d2t_psroi_fwd.restype = i32
+    lib.d2t_psroi_bwd.argtypes = [ptr] + [i64] * 5 + [ptr] * 4 + [i32] * 7 + [i64] * 4 + [ptr]
+    lib.d2t_psroi_bwd.restype = i32
+    lib.d2t_psroi_bwd_smem_bytes.argtypes = [i32] * 3
+    lib.d2t_psroi_bwd_smem_bytes.restype = ctypes.c_size_t
+    lib.d2t_psroi_bwd_blocks_per_sm.argtypes = [i32] * 3
+    lib.d2t_psroi_bwd_blocks_per_sm.restype = i32
+    return lib
+
+
+def _check_bounds(bounds: torch.Tensor, device: torch.device, b: int) -> int:
+    """raise unless bounds is a contiguous, 16-byte aligned (b, R, 4, k)
+    int32 tensor on device with k in 1-32 (the backward loads a roi's
+    bounds as k 16-byte vectors); returns k."""
+    if (bounds.device != device or bounds.dtype != torch.int32 or bounds.dim() != 4 or bounds.shape[0] != b
+            or bounds.shape[2] != 4 or not 1 <= bounds.shape[3] <= 32 or not bounds.is_contiguous()
+            or bounds.data_ptr() % 16):
+        raise ValueError(f"expected contiguous, 16-byte aligned ({b}, R, 4, k) int32 bin bounds on {device}, k "
+                         f"1-32; got {bounds.dtype} {tuple(bounds.shape)} on {bounds.device}")
+    return bounds.shape[3]
+
+
+_INVERSE: dict = {}
+
+
+def _channel_inverse(n_targets: int, r_hw: int, paper_layout: bool, device: torch.device):
+    """the channel map's inverse as a CSR on device: (ptr (C + 1), idx (T k^2))
+    int32, the flat (t, i, j) of channel c being idx[ptr[c]:ptr[c + 1]],
+    ascending."""
+    key = (n_targets, r_hw, paper_layout, device)
+    if key not in _INVERSE:
+        ch = ps_roi_pool_channel_map(n_targets, r_hw, paper_layout).reshape(-1)
+        ptr = torch.zeros(ch.numel() + 1, dtype=torch.int64)
+        ptr[1:] = torch.bincount(ch, minlength=ch.numel()).cumsum(0)
+        idx = torch.argsort(ch, stable=True)
+        _INVERSE[key] = (ptr.to(device, torch.int32), idx.to(device, torch.int32))
+    return _INVERSE[key]
+
+
+def psroi_fwd_cuda(fm: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool) -> torch.Tensor:
+    """launch the forward kernel: fm (B, H, W, T k^2) float32 CUDA maps of
+    any strides, bounds (B, R, 4, k) int32 -> (B, R, T, k, k) float32.
+    Counts each launch in `psroi_fwd_cuda.launches`."""
+    if not fm.is_cuda or fm.dtype != torch.float32 or fm.dim() != 4:
+        raise ValueError(f"the PSROIPool kernel takes (B, H, W, C) float32 CUDA maps, got {fm.dtype} "
+                         f"{tuple(fm.shape)} on {fm.device}")
+    b, h, w, c = fm.shape
+    k = _check_bounds(bounds, fm.device, b)
+    if c != n_targets * k * k:
+        raise ValueError(f"expected {n_targets * k * k} channels, got maps of shape {tuple(fm.shape)}")
+    r = bounds.shape[1]
+    out = torch.empty((b, r, n_targets, k, k), dtype=torch.float32, device=fm.device)
+    with torch.cuda.device(fm.device):
+        stream = torch.cuda.current_stream(fm.device).cuda_stream
+        err = _psroi_lib().d2t_psroi_fwd(fm.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, r, n_targets, k, h, w,
+                                         *fm.stride(), int(paper_layout), stream)
+    if err != 0:
+        raise RuntimeError(f"PSROIPool forward kernel launch failed: CUDA error {err}")
+    psroi_fwd_cuda.launches += 1
+    return out
+
+
+psroi_fwd_cuda.launches = 0
+
+
+def psroi_bwd_cuda(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool, fm_h: int,
+                   fm_w: int) -> torch.Tensor:
+    """launch the backward kernel: the forward's cotangent g (B, R, T, k, k)
+    float32 CUDA tensor of any strides and bounds (B, R, 4, k) int32 -> dfm
+    (B, H, W, C) contiguous (the R-FCN's maps' layout), every element
+    written. Deterministic: bitwise the same on a repeat. Counts each launch
+    in `psroi_bwd_cuda.launches`."""
+    if not g.is_cuda or g.dtype != torch.float32 or g.dim() != 5:
+        raise ValueError(f"the PSROIPool backward kernel takes a (B, R, T, k, k) float32 CUDA cotangent, got "
+                         f"{g.dtype} {tuple(g.shape)} on {g.device}")
+    b, r, t, k = g.shape[:4]
+    if _check_bounds(bounds, g.device, b) != k or g.shape != (b, bounds.shape[1], n_targets, k, k):
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match bounds {tuple(bounds.shape)} and "
+                         f"{n_targets} targets")
+    c = n_targets * k * k
+    dfm = torch.empty((b, fm_h, fm_w, c), dtype=torch.float32, device=g.device)
+    lib = _psroi_lib()
+    if lib.d2t_psroi_bwd_smem_bytes(c, k, r) == 0:
+        raise ValueError(f"{c} channels do not fit a backward block's shared memory")
+    ptr, idx = _channel_inverse(n_targets, k, paper_layout, g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.d2t_psroi_bwd(g.data_ptr(), *g.stride(), bounds.data_ptr(), ptr.data_ptr(), idx.data_ptr(),
+                                dfm.data_ptr(), b, r, n_targets, k, fm_h, fm_w, c, *dfm.stride(), stream)
+    if err != 0:
+        raise RuntimeError(f"PSROIPool backward kernel launch failed: CUDA error {err}")
+    psroi_bwd_cuda.launches += 1
+    return dfm
+
+
+psroi_bwd_cuda.launches = 0
+
+
+@torch.library.custom_op("d2t::psroi_fwd", mutates_args=(), device_types="cpu")
+def psroi_fwd(fm: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool) -> torch.Tensor:
+    """PSROIPool's forward, the op `d2t::psroi_fwd`: fm (B, H, W, T k^2),
+    bounds (B, R, 4, k) int32 (psroi_bounds) -> (B, R, T, k, k). The kernel
+    for CUDA tensors (psroi_fwd_cuda), the plain einsum form for CPU
+    tensors; its backward is `d2t::psroi_bwd`. Returns a contiguous tensor."""
+    return ps_roi_pool_plain(fm, bounds, n_targets, paper_layout).contiguous()
+
+
+psroi_fwd.register_kernel("cuda")(psroi_fwd_cuda)
+
+
+@psroi_fwd.register_fake
+def _psroi_fwd_fake(fm: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool) -> torch.Tensor:
+    b, r, _, k = bounds.shape
+    return fm.new_empty((b, r, n_targets, k, k), dtype=_float_type(fm.dtype))
+
+
+@torch.library.custom_op("d2t::psroi_bwd", mutates_args=(), device_types="cpu")
+def psroi_bwd(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool, fm_h: int,
+              fm_w: int) -> torch.Tensor:
+    """PSROIPool's backward, the op `d2t::psroi_bwd`: the cotangent g (B, R,
+    T, k, k) -> dfm (B, H, W, C) contiguous, whatever the maps' strides
+    (autograd takes a gradient in any layout). The kernel for CUDA tensors
+    (psroi_bwd_cuda), psroi_bwd_ref for CPU tensors."""
+    return psroi_bwd_ref(g, bounds, n_targets, paper_layout, fm_h, fm_w)
+
+
+psroi_bwd.register_kernel("cuda")(psroi_bwd_cuda)
+
+
+@psroi_bwd.register_fake
+def _psroi_bwd_fake(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool, fm_h: int,
+                    fm_w: int) -> torch.Tensor:
+    return g.new_empty((g.shape[0], fm_h, fm_w, n_targets * g.shape[-1] ** 2), dtype=_float_type(g.dtype))
+
+
+def _psroi_setup_context(ctx, inputs, output) -> None:
+    fm, bounds, n_targets, paper_layout = inputs
+    ctx.save_for_backward(bounds)  # not fm: the backward does not read the maps
+    ctx.n_targets, ctx.paper_layout = n_targets, paper_layout
+    ctx.fm_hw = fm.shape[1], fm.shape[2]
+
+
+def _psroi_backward(ctx, grad):
+    (bounds,) = ctx.saved_tensors
+    return psroi_bwd(grad, bounds, ctx.n_targets, ctx.paper_layout, *ctx.fm_hw), None, None, None
+
+
+psroi_fwd.register_autograd(_psroi_backward, setup_context=_psroi_setup_context)
 
 
 def _ps_roi_pool_sat(fm, rois, n_targets: int, r_hw: int, paper_layout: bool) -> torch.Tensor:

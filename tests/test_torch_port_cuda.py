@@ -16,7 +16,7 @@ from detect_to_track_tpu_torch.anchors import build_anchors
 from detect_to_track_tpu_torch.boxes import compute_ious
 from detect_to_track_tpu_torch.config import Config
 from detect_to_track_tpu_torch.encoding import frcnn_box_decode
-from detect_to_track_tpu_torch.ops import correlation, nms
+from detect_to_track_tpu_torch.ops import correlation, nms, pooling
 from detect_to_track_tpu_torch.viterbi import viterbi_multi_link
 
 pytestmark = pytest.mark.gpu
@@ -404,7 +404,8 @@ def test_correlation_ops_opcheck(cuda):
 
 def test_export_on_card_holds_the_kernels(cuda, tmp_path):
     """a tiny detector (ResNet-50 at 64x96, bf16) exported on the card: its
-    graph calls d2t::corr_fwd (3 times) and d2t::nms_mask, the served call
+    graph calls d2t::corr_fwd (3 times), d2t::nms_mask and d2t::psroi_fwd
+    (twice), the served call
     launches the kernels and its outputs equal the live call's."""
     from detect_to_track_tpu_torch.config import Config
     from detect_to_track_tpu_torch.export import export_detector, load_detector
@@ -418,11 +419,119 @@ def test_export_on_card_holds_the_kernels(cuda, tmp_path):
     export_detector(det.model, cfg, str(path), pair_batch=2, device=cuda)
     code = torch.export.load(str(path)).graph_module.code
     assert code.count("torch.ops.d2t.corr_fwd.default") == 3 and code.count("torch.ops.d2t.nms_mask.default") == 1
+    assert code.count("torch.ops.d2t.psroi_fwd.default") == 2
     serve = load_detector(str(path), device=cuda)
     pairs = np.random.default_rng(0).integers(0, 256, (2, 2, 64, 96, 3), dtype=np.uint8)
-    counts = correlation.corr_fwd_cuda.launches, nms.nms_mask_cuda.launches
+    counters = (correlation.corr_fwd_cuda, nms.nms_mask_cuda, pooling.psroi_fwd_cuda)
+    counts = [fn.launches for fn in counters]
     got = serve(pairs)
     torch.cuda.synchronize()
-    assert (correlation.corr_fwd_cuda.launches - counts[0], nms.nms_mask_cuda.launches - counts[1]) == (3, 1)
+    assert tuple(fn.launches - c for fn, c in zip(counters, counts)) == (3, 1, 2)
     for g, r in zip(got, det.detect_pairs(pairs)):
         assert torch.equal(g, r)
+
+
+# ---------------------------------------------------------------- PSROIPool
+
+# (T, C) of the R-FCN's two heads at k 7: the class head's 31 targets, the box head's 4
+PSROI_HEADS = [(31, 1519), (4, 196)]
+
+
+def _psroi_problem(seed, b, r, h, w, c, nchw, device):
+    """(b, h, w, c) float32 maps (a view of NCHW storage, or contiguous) and
+    (b, r, 4) proposal-like rois with rois past the border and empty bins."""
+    rng = np.random.default_rng(seed)
+    rois = np.concatenate([rng.uniform(0.0, 1.0, (b, r, 2)), rng.uniform(0.02, 0.62, (b, r, 2))], -1)
+    rois[:, 1::16] = [0.98, 0.02, 1.1, 0.9]  # past the border
+    rois[:, 3::32] = [0.5, 0.5, 0.0, 0.3]  # zero height on a pixel row: empty
+    rois[:, 7::32] = [1.4, 0.5, 0.2, 0.2]  # below the map: empty
+    shape = (b, c, h, w) if nchw else (b, h, w, c)
+    base = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(device)
+    return base, torch.from_numpy(rois.astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("nchw", [True, False], ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
+@pytest.mark.parametrize("head", PSROI_HEADS, ids=["class", "box"])
+def test_psroi_kernels_match_plain(cuda, head, paper, nchw):
+    """ps_roi_pool on CUDA maps at the working shapes (8 frames, 38x75, 256
+    rois, k 7) launches the forward kernel, and its autograd the backward
+    kernel; the forward within 1e-5 of the largest magnitude of the plain
+    einsum form (another summation order), empty bins exactly 0; the
+    gradient within 1e-5 of autograd through the plain form and bitwise the
+    same on a repeat."""
+    n_t, c = head
+    k, fh, fw = 7, 38, 75
+    base, rois = _psroi_problem(n_t, 8, 256, fh, fw, c, nchw, cuda)
+    view = (lambda x: x.permute(0, 2, 3, 1)) if nchw else (lambda x: x)
+    bounds = pooling.psroi_bounds(rois, k, fh, fw)
+    g = torch.randn(8, 256, n_t, k, k, device=cuda)
+    grads, counts = [], (pooling.psroi_fwd_cuda.launches, pooling.psroi_bwd_cuda.launches)
+    for _ in range(2):
+        x = base.detach().requires_grad_()
+        out = pooling.ps_roi_pool(view(x), rois, n_t, k, paper)
+        out.backward(g)
+        grads.append(x.grad)
+    torch.cuda.synchronize()
+    assert (pooling.psroi_fwd_cuda.launches - counts[0], pooling.psroi_bwd_cuda.launches - counts[1]) == (2, 2)
+    x = base.detach().requires_grad_()
+    ref = pooling.ps_roi_pool_plain(view(x), bounds, n_t, paper)
+    (want,) = torch.autograd.grad(ref, x, g)
+    torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-5 * ref.abs().max().item())
+    i0, i1, j0, j1 = bounds.unbind(2)
+    empty = (i1 - i0)[..., :, None] * (j1 - j0)[..., None, :] <= 0
+    assert empty.any() and (out.detach().permute(0, 1, 3, 4, 2)[empty] == 0).all()
+    assert grads[0].is_contiguous() and torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], want, rtol=0.0, atol=1e-5 * want.abs().max().item())
+
+
+def test_psroi_rejects_bad_input(cuda):
+    """the kernels take float32 maps and int32 bounds; other input raises and
+    launches nothing."""
+    base, rois = _psroi_problem(0, 2, 16, 9, 11, 27, False, cuda)
+    bounds = pooling.psroi_bounds(rois, 3, 9, 11)
+    counts = pooling.psroi_fwd_cuda.launches, pooling.psroi_bwd_cuda.launches
+    with pytest.raises(ValueError, match="float32"):
+        pooling.ps_roi_pool(base.to(torch.bfloat16), rois, 3, 3)
+    with pytest.raises(ValueError, match="int32"):
+        pooling.psroi_fwd_cuda(base, bounds.long(), 3, False)
+    with pytest.raises(ValueError, match="channels"):
+        pooling.psroi_fwd_cuda(base[..., :18], bounds, 3, False)
+    with pytest.raises(ValueError, match="float32"):
+        pooling.psroi_bwd_cuda(torch.zeros(2, 16, 3, 3, 3, device=cuda, dtype=torch.float64), bounds, 3, False, 9,
+                               11)
+    assert (pooling.psroi_fwd_cuda.launches, pooling.psroi_bwd_cuda.launches) == counts
+
+
+def test_psroi_ops_opcheck(cuda):
+    """torch.library.opcheck on both ops with CUDA inputs: schema, the fakes
+    against the kernels (contiguous outputs: the backward's NHWC whatever
+    the maps' strides), psroi_fwd's autograd."""
+    for nchw in (True, False):
+        base, rois = _psroi_problem(1, 2, 24, 9, 11, 27, nchw, cuda)
+        fm = (base.permute(0, 2, 3, 1) if nchw else base).requires_grad_()
+        bounds = pooling.psroi_bounds(rois, 3, 9, 11)
+        torch.library.opcheck(torch.ops.d2t.psroi_fwd.default, (fm, bounds, 3, False))
+        g = torch.randn(2, 24, 3, 3, 3, device=cuda)
+        torch.library.opcheck(torch.ops.d2t.psroi_bwd.default, (g, bounds, 3, nchw, 9, 11))
+
+
+def test_rfcn_maps_are_contiguous_nhwc(cuda, monkeypatch):
+    """the R-FCN's convolutions run channels-last on a contiguous NHWC c5 (as
+    the backbone gives it), so both heads hand PSROIPool contiguous NHWC
+    maps: the layout the kernels are tuned and timed at."""
+    from detect_to_track_tpu_torch.models import rfcn
+
+    seen = []
+
+    def spy(fm, *args, **kwargs):
+        seen.append(fm.is_contiguous())
+        return pooling.ps_roi_pool(fm, *args, **kwargs)
+
+    monkeypatch.setattr(rfcn, "ps_roi_pool", spy)
+    for dtype in (torch.float32, torch.bfloat16):
+        head = rfcn.RFCN(5, k=3, in_channels=64, reduce_channels=32, dtype=dtype).to(cuda)
+        x = torch.randn(2, 9, 13, 64, device=cuda)
+        rois = torch.rand(2, 8, 4, device=cuda)
+        head(x, rois)
+    assert seen == [True] * 4

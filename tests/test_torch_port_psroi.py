@@ -1,0 +1,460 @@
+"""PSROIPool's ops and kernels on the CPU: the registered ops `d2t::psroi_fwd`
+/ `d2t::psroi_bwd` (their CPU bodies, the plain versions) against the JAX
+package's ps_roi_pool and its jax.grad; the kernels' own source
+(ops/csrc/psroi.cu) run on CPU threads against the plain forward and
+autograd through it, in both channel layouts and both map layouts
+(contiguous NHWC, the R-FCN's, and NHWC views of NCHW storage), with rois
+whose bin edges sit on pixel boundaries, rois past the border, empty bins, a
+NaN roi and rois in several of the backward's staging chunks; the backward
+bitwise the same on a repeat.
+
+Tolerances: the kernels sum each bin (forward) and each channel's terms
+(backward) in another order than the einsum form: f32 rounding of sums of
+tens of terms, within 1e-5 of the largest magnitude. The JAX package's
+einsum form against the port's: the same bound."""
+
+import ctypes
+import subprocess
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from detect_to_track_tpu.ops import pooling as j_pool
+from detect_to_track_tpu_torch.ops import pooling
+
+CSRC = Path(pooling.__file__).parent / "csrc"
+TOL = 1e-5  # of the largest magnitude
+# (T, k, H, W): the box head's 4 and the class head's 31 targets at k 3 and 7;
+# H 12 / W 16 put the dyadic rois' bin edges on pixel boundaries
+CASES = [(3, 3, 12, 16), (31, 3, 9, 11), (4, 7, 13, 17), (31, 7, 12, 16)]
+
+
+def _rois(rng, b, n_random=8):
+    """(b, R, 4) fractional ijhw rois: random ones, dyadic ones whose bin
+    edges land on pixel boundaries at H 12 / W 16 (k 3 and 7), rois past the
+    border or outside the map, zero-size and negative-size rois (empty bins)."""
+    special = [
+        [0.25 + 0.375, 0.125 + 0.09375, 0.75, 0.1875],  # k 3: bins 0.25 high, 1/16 wide
+        [0.0 + 0.875, 0.25 + 0.21875, 1.75, 0.4375],  # k 7: the same bins, past the bottom
+        [0.5 + 0.375, 0.5, 0.75, 1.0],  # edges on 0.5, 0.75, 1.0
+        [0.95, 0.05, 0.6, 0.8],  # past the bottom and left borders
+        [-0.2, 1.1, 0.5, 0.5],  # mostly outside
+        [1.5, 0.5, 0.2, 0.2],  # outside: every bin empty
+        [0.5, 0.5, 0.0, 0.3],  # zero height on a pixel boundary at H 12: empty
+        [0.4, 0.6, -0.3, 0.2],  # negative height
+        [0.3, 0.3, -0.2, -0.4],  # both negative: i1 < i0 and j1 < j0, n > 0
+        [0.5, 0.5, 1.0, 1.0],  # the whole map
+    ]
+    out = []
+    for _ in range(b):
+        ij = rng.uniform(0.1, 0.9, (n_random, 2))
+        hw = rng.uniform(0.05, 0.7, (n_random, 2))
+        rois = np.concatenate([np.concatenate([ij, hw], 1), special])
+        out.append(rois[rng.permutation(len(rois))])
+    return np.stack(out).astype(np.float32)
+
+
+def _maps(rng, b, h, w, c, nchw):
+    """(b, h, w, c) float32 maps: contiguous, or a view of NCHW storage."""
+    if nchw:
+        return torch.from_numpy(rng.standard_normal((b, c, h, w), dtype=np.float32)).permute(0, 2, 3, 1)
+    return torch.from_numpy(rng.standard_normal((b, h, w, c), dtype=np.float32))
+
+
+def _close(got, ref):
+    scale = ref.abs().max().item()
+    assert scale > 0
+    torch.testing.assert_close(got, ref, rtol=0.0, atol=TOL * scale)
+
+
+# ---------------------------------------------------------------- the ops against JAX
+
+
+@pytest.mark.parametrize("nchw", [False, True], ids=["nhwc", "nchw"])
+@pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
+@pytest.mark.parametrize("case", CASES[:3], ids=str)
+def test_op_cpu_path_matches_jax(case, paper, nchw):
+    """torch.ops.d2t.psroi_fwd on CPU tensors, forward and autograd (its
+    registered backward, d2t::psroi_bwd), against JAX's ps_roi_pool and
+    jax.grad, frame by frame, from the same numpy inputs."""
+    n_t, k, h, w = case
+    rng = np.random.default_rng(k * 100 + n_t)
+    rois = _rois(rng, 2)
+    fm = _maps(rng, 2, h, w, n_t * k * k, nchw)
+    cot = rng.standard_normal((2, rois.shape[1], n_t, k, k), dtype=np.float32)
+    base = (fm.permute(0, 3, 1, 2) if nchw else fm).detach().clone().requires_grad_()
+    x = base.permute(0, 2, 3, 1) if nchw else base
+    out = torch.ops.d2t.psroi_fwd(x, pooling.psroi_bounds(torch.from_numpy(rois), k, h, w), n_t, paper)
+    (out * torch.from_numpy(cot)).sum().backward()
+    grad = base.grad.permute(0, 2, 3, 1) if nchw else base.grad
+    fm_np = fm.contiguous().numpy()
+    for f in range(2):
+        def loss(m, f=f):
+            return (j_pool.ps_roi_pool(m, rois[f], n_t, k, paper) * cot[f]).sum()
+
+        ref = torch.from_numpy(np.array(j_pool.ps_roi_pool(fm_np[f], rois[f], n_t, k, paper)))
+        _close(out[f].detach(), ref)
+        _close(grad[f], torch.from_numpy(np.array(jax.grad(loss)(fm_np[f]))))
+
+
+@pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_plain_backward_matches_autograd(case, paper):
+    """psroi_bwd_ref (the backward op's CPU body) against autograd through
+    the plain forward; ps_roi_pool's CPU path (the forward op's CPU body)
+    is the plain forward; the backward op returns contiguous NHWC."""
+    n_t, k, h, w = case
+    rng = np.random.default_rng(k + n_t)
+    rois = torch.from_numpy(_rois(rng, 2))
+    bounds = pooling.psroi_bounds(rois, k, h, w)
+    fm = _maps(rng, 2, h, w, n_t * k * k, False).requires_grad_()
+    out = pooling.ps_roi_pool_plain(fm, bounds, n_t, paper)
+    assert torch.equal(out, pooling.ps_roi_pool(fm, rois, n_t, k, paper))
+    g = torch.from_numpy(rng.standard_normal(out.shape, dtype=np.float32))
+    (ref,) = torch.autograd.grad(out, fm, g)
+    got = pooling.psroi_bwd_ref(g, bounds, n_t, paper, h, w)
+    _close(got, ref)
+    x = fm.detach().requires_grad_()  # ps_roi_pool's autograd is the backward op's
+    pooling.ps_roi_pool(x, rois, n_t, k, paper).backward(g)
+    assert torch.equal(x.grad, got)
+    dfm = torch.ops.d2t.psroi_bwd(g, bounds, n_t, paper, h, w)
+    assert dfm.is_contiguous() and torch.equal(dfm, got)
+
+
+def test_ops_opcheck_and_fakes():
+    """torch.library.opcheck on both ops with CPU inputs (schema, the fakes
+    against the CPU bodies, psroi_fwd's autograd registration); the fakes on
+    meta tensors."""
+    rng = np.random.default_rng(0)
+    n_t, k, h, w = 3, 3, 9, 11
+    bounds = pooling.psroi_bounds(torch.from_numpy(_rois(rng, 2, 2)), k, h, w)
+    for nchw in (False, True):
+        fm = _maps(rng, 2, h, w, n_t * k * k, nchw).requires_grad_()
+        torch.library.opcheck(torch.ops.d2t.psroi_fwd.default, (fm, bounds, n_t, False))
+        g = torch.randn(2, bounds.shape[1], n_t, k, k)
+        torch.library.opcheck(torch.ops.d2t.psroi_bwd.default, (g, bounds, n_t, nchw, h, w))
+    meta = torch.ops.d2t.psroi_fwd(torch.empty(2, h, w, n_t * k * k, device="meta"), bounds.to("meta"), n_t, False)
+    assert meta.shape == (2, bounds.shape[1], n_t, k, k) and meta.dtype == torch.float32
+    meta = torch.ops.d2t.psroi_bwd(torch.empty(2, bounds.shape[1], n_t, k, k, device="meta"), bounds.to("meta"),
+                                   n_t, False, h, w)
+    assert meta.shape == (2, h, w, n_t * k * k)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """a CPU tensor never reaches a kernel wrapper: it raises, naming CUDA."""
+    bounds = torch.zeros(1, 2, 4, 3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pooling.psroi_fwd_cuda(torch.zeros(1, 4, 5, 18), bounds, 2, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        pooling.psroi_bwd_cuda(torch.zeros(1, 2, 2, 3, 3), bounds, 2, False, 4, 5)
+
+
+# ---------------------------------------------------------------- the kernels' source on CPU threads
+
+# psroi.cu's kernels compiled for the CPU, in this process's one thread:
+# a block's CUDA threads run one after another (the forward has no barrier
+# and no warp intrinsic) or as fibers (ucontext), switched in round robin
+# (the backward): __syncthreads a barrier of the block's fibers, __syncwarp
+# one of the warp's 32, __ballot_sync a slot a lane between two arrivals
+# there; shared memory a static buffer, __ldg a plain load; built without FMA
+# contraction (the kernels have no product to contract).
+_CUDA_ON_CPU = r"""
+#include <ucontext.h>
+
+#include <functional>
+#include <memory>
+#include <vector>
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3() = default;
+  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline dim3 threadIdx, blockIdx, blockDim;  // the running fiber's
+struct Fiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  bool done = false;
+};
+inline ucontext_t g_main;
+inline Fiber* g_cur;
+inline std::function<void()> g_body;
+inline void fiber_entry() {
+  g_body();
+  g_cur->done = true;
+}
+inline void fiber_yield() { swapcontext(&g_cur->ctx, &g_main); }
+struct Barrier {
+  int n = 0, count = 0;
+  unsigned gen = 0;
+};
+inline void barrier_wait(Barrier& b) {
+  const unsigned gen = b.gen;
+  if (++b.count == b.n) {
+    b.count = 0;
+    ++b.gen;
+    return;
+  }
+  while (b.gen == gen) fiber_yield();
+}
+inline Barrier g_block_bar, g_warp_bar[32];
+inline unsigned g_warp_slot[32][32];
+inline void __syncthreads() { barrier_wait(g_block_bar); }
+inline void __syncwarp() { barrier_wait(g_warp_bar[threadIdx.x / 32]); }
+inline unsigned __ballot_sync(unsigned, int p) {
+  const unsigned wp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  g_warp_slot[wp][lane] = p ? 1u << lane : 0u;
+  barrier_wait(g_warp_bar[wp]);
+  unsigned v = 0;
+  for (int l = 0; l < 32; ++l) v |= g_warp_slot[wp][l];
+  barrier_wait(g_warp_bar[wp]);
+  return v;
+}
+inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
+struct int4 {
+  int x, y, z, w;
+};
+template <typename T>
+inline T __ldg(const T* p) { return *p; }
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+#define __restrict__
+inline float g_smem[1 << 16];
+"""
+
+_CPU_LAUNCH = r"""
+template <typename F>
+void run_blocks(dim3 grid, int nth, bool fibers, F f) {
+  constexpr size_t kStack = 1 << 16;
+  blockDim = dim3(nth);
+  g_body = f;
+  std::vector<Fiber> fs(fibers ? nth : 0);
+  for (auto& fb : fs) fb.stack.reset(new char[kStack]);
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = dim3(x, y, z);
+        if (!fibers) {
+          for (int t = 0; t < nth; ++t) {
+            threadIdx = dim3(t);
+            f();
+          }
+          continue;
+        }
+        g_block_bar = Barrier{nth};
+        for (int wp = 0; wp < nth / 32; ++wp) g_warp_bar[wp] = Barrier{32};
+        for (auto& fb : fs) {
+          fb.done = false;
+          getcontext(&fb.ctx);
+          fb.ctx.uc_stack.ss_sp = fb.stack.get();
+          fb.ctx.uc_stack.ss_size = kStack;
+          fb.ctx.uc_link = &g_main;
+          makecontext(&fb.ctx, fiber_entry, 0);
+        }
+        for (int live = nth; live > 0;)
+          for (int t = 0; t < nth; ++t)
+            if (!fs[t].done) {
+              g_cur = &fs[t];
+              threadIdx = dim3(t);
+              swapcontext(&g_main, &fs[t].ctx);
+              live -= fs[t].done;
+            }
+      }
+}
+extern "C" void cpu_psroi_fwd(const float* fm, const int* bounds, float* out, int b, int r, int t, int k, int h,
+                              int w, long long sb, long long sh, long long sw, long long sc, int paper) {
+  const long long n_bins = static_cast<long long>(b) * r * k * k;
+  const long long per_block = kFwdThreads / kWarp;
+  run_blocks(dim3((n_bins + per_block - 1) / per_block), kFwdThreads, false,
+             [=] { psroi_fwd_kernel(fm, bounds, out, n_bins, r, t, k, h, w, sb, sh, sw, sc, paper); });
+}
+// warps 0: the launch's own choice (bwd_warps)
+extern "C" void cpu_psroi_bwd(const float* g, long long gsb, long long gsr, long long gst, long long gsi,
+                              long long gsj, const int* bounds, const int* inv_ptr, const int* inv_idx, float* dfm,
+                              int b, int r, int t, int k, int h, int w, int c, long long sb, long long sh,
+                              long long sw, long long sc, int warps) {
+  if (warps == 0) warps = bwd_warps(c, k, r);
+  const int px = warps * kBwdRounds;
+  run_blocks(dim3((w + px - 1) / px, h, b), warps * kWarp, true, [=] {
+    bwd_kernel(k)(g, gsb, gsr, gst, gsi, gsj, bounds, inv_ptr, inv_idx, dfm, sb, sh, sw, sc, r, t, k, w, c);
+  });
+}
+extern "C" int cpu_bwd_warps(int c, int k, int r) { return bwd_warps(c, k, r); }
+"""
+
+
+def _kernels_on_cpu(out):
+    """ops/csrc/psroi.cu built for CPU threads into `out`."""
+    src = (CSRC / "psroi.cu").read_text()
+    edits = [
+        ("#include <cuda_runtime.h>\n", _CUDA_ON_CPU),
+        ("  extern __shared__ float smem[];\n", "  float* smem = g_smem;\n"),
+        ("namespace {", ""),
+        ("}  // namespace", ""),
+    ]
+    for old, new in edits:
+        assert old in src, f"psroi.cu changed: update this emulation ({old.strip()!r} not found)"
+        src = src.replace(old, new, 1)
+    src = src[: src.index('extern "C" {')] + _CPU_LAUNCH
+    (out / "psroi_cpu.cpp").write_text(src)
+    cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(out / "lib.so"),
+           str(out / "psroi_cpu.cpp")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    lib = ctypes.CDLL(str(out / "lib.so"))
+    i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    lib.cpu_psroi_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [i64] * 4 + [i32]
+    lib.cpu_psroi_bwd.argtypes = [ptr] + [i64] * 5 + [ptr] * 4 + [i32] * 7 + [i64] * 4 + [i32]
+    lib.cpu_bwd_warps.argtypes = [i32] * 3
+    return lib
+
+
+@pytest.fixture(scope="module")
+def kernels(tmp_path_factory):
+    return _kernels_on_cpu(tmp_path_factory.mktemp("psroi_cpu"))
+
+
+def _fwd(lib, fm, bounds, n_t, paper):
+    """the forward kernel on CPU threads into a NaN-poisoned output."""
+    b, h, w, _ = fm.shape
+    r, k = bounds.shape[1], bounds.shape[3]
+    out = torch.full((b, r, n_t, k, k), float("nan"))
+    lib.cpu_psroi_fwd(fm.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, r, n_t, k, h, w, *fm.stride(), int(paper))
+    return out
+
+
+def _bwd(lib, g, bounds, n_t, paper, h, w, nchw, warps=0):
+    """the backward kernel on CPU threads into a NaN-poisoned dfm of NHWC or
+    (nchw) NCHW storage, returned as its (B, H, W, C) view: the kernel
+    takes dfm's strides."""
+    b, r, _, k, _ = g.shape
+    c = n_t * k * k
+    out = torch.full((b, c, h, w) if nchw else (b, h, w, c), float("nan"))
+    dfm = out.permute(0, 2, 3, 1) if nchw else out
+    ptr, idx = pooling._channel_inverse(n_t, k, paper, torch.device("cpu"))
+    lib.cpu_psroi_bwd(g.data_ptr(), *g.stride(), bounds.data_ptr(), ptr.data_ptr(), idx.data_ptr(), dfm.data_ptr(),
+                      b, r, n_t, k, h, w, c, *dfm.stride(), warps)
+    return dfm
+
+
+def _problem(case, seed, nchw, nan_roi=False):
+    n_t, k, h, w = case
+    rng = np.random.default_rng(seed)
+    rois = _rois(rng, 2)
+    if nan_roi:
+        rois[1, 3] = np.nan
+    fm = _maps(rng, 2, h, w, n_t * k * k, nchw)
+    return rng, fm, pooling.psroi_bounds(torch.from_numpy(rois), k, h, w)
+
+
+@pytest.mark.parametrize("nchw", [False, True], ids=["nhwc", "nchw"])
+@pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_kernels_match_plain(kernels, case, paper, nchw):
+    """both kernels against the plain forward and autograd through it; empty
+    bins exactly 0; every dfm element written; the backward bitwise the same
+    on a repeat (and with fewer warps a block: other rounds, idle warps)."""
+    n_t, k, h, w = case
+    rng, fm, bounds = _problem(case, seed=h * w + n_t, nchw=nchw, nan_roi=True)
+    ref = pooling.ps_roi_pool_plain(fm, bounds, n_t, paper)
+    got = _fwd(kernels, fm, bounds, n_t, paper)
+    _close(got, ref)
+    i0, i1, j0, j1 = bounds.unbind(2)
+    empty = ((i1 - i0)[..., :, None] * (j1 - j0)[..., None, :] <= 0)[:, :, None].expand_as(got)
+    assert empty.any() and (got[empty] == 0).all()
+
+    g = torch.from_numpy(rng.standard_normal(ref.shape, dtype=np.float32))
+    x = fm.detach().requires_grad_()
+    (want,) = torch.autograd.grad(pooling.ps_roi_pool_plain(x, bounds, n_t, paper), x, g)
+    dfm = _bwd(kernels, g, bounds, n_t, paper, h, w, nchw)
+    _close(dfm, want)
+    assert torch.equal(dfm, _bwd(kernels, g, bounds, n_t, paper, h, w, nchw))
+    assert torch.equal(dfm, _bwd(kernels, g, bounds, n_t, paper, h, w, nchw, warps=3))
+
+
+def test_backward_reads_cotangent_strides(kernels):
+    """the cotangent of the head's mean over the k x k grid: an expanded
+    (stride 0) tensor, read through its strides."""
+    case = n_t, k, h, w = CASES[3]
+    rng, fm, bounds = _problem(case, seed=7, nchw=True)
+    g = torch.from_numpy(rng.standard_normal((2, bounds.shape[1], n_t, 1, 1), dtype=np.float32)).expand(-1, -1, -1, k,
+                                                                                                          k)
+    want = pooling.psroi_bwd_ref(g.contiguous(), bounds, n_t, False, h, w)
+    _close(_bwd(kernels, g, bounds, n_t, False, h, w, True), want)
+
+
+@pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
+def test_kernels_on_arbitrary_bounds(kernels, paper):
+    """bounds the geometry never makes (unordered, negative, past the map,
+    int32 products that wrap): a bin still holds the pixels 0 <= h < H with
+    i0 <= h < i1, and n is the int32 product, as in the plain version."""
+    n_t, k, h, w = 3, 3, 9, 11
+    rng = np.random.default_rng(11)
+    bounds = np.stack([rng.integers(-3, h + 4, (2, 12, k)), rng.integers(-3, h + 4, (2, 12, k)),
+                       rng.integers(-3, w + 4, (2, 12, k)), rng.integers(-3, w + 4, (2, 12, k))], 2)
+    bounds[0, 0] = [[-100000] * k, [100000] * k, [-100000] * k, [100000] * k]  # n wraps (int32)
+    bounds[0, 1] = [[0] * k, [h] * k, [-70000] * k, [w] * k]
+    bounds[1, 0] = [[-65530] * k, [6] * k, [-65530] * k, [6] * k]  # 2^16 x 2^16 wraps to n = 0
+    bounds = torch.from_numpy(bounds.astype(np.int32))
+    fm = _maps(rng, 2, h, w, n_t * k * k, True)
+    ref = pooling.ps_roi_pool_plain(fm, bounds, n_t, paper)
+    _close(_fwd(kernels, fm, bounds, n_t, paper), ref)
+    g = torch.from_numpy(rng.standard_normal(ref.shape, dtype=np.float32))
+    _close(_bwd(kernels, g, bounds, n_t, paper, h, w, True), pooling.psroi_bwd_ref(g, bounds, n_t, paper, h, w))
+
+
+@pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
+def test_backward_in_roi_chunks(kernels, paper):
+    """300 rois a frame: the backward stages them 128 at a time (3 chunks,
+    the last one partial) and holds against the plain backward, bitwise the
+    same on a repeat; the forward too."""
+    case = n_t, k, h, w = CASES[3]
+    rng = np.random.default_rng(5)
+    rois = torch.from_numpy(np.concatenate([_rois(rng, 2, n_random=280), _rois(rng, 2, n_random=0)], 1))
+    assert rois.shape[1] == 300
+    bounds = pooling.psroi_bounds(rois, k, h, w)
+    fm = _maps(rng, 2, h, w, n_t * k * k, False)
+    _close(_fwd(kernels, fm, bounds, n_t, paper), pooling.ps_roi_pool_plain(fm, bounds, n_t, paper))
+    g = torch.from_numpy(rng.standard_normal((2, rois.shape[1], n_t, k, k), dtype=np.float32))
+    got = _bwd(kernels, g, bounds, n_t, paper, h, w, False)
+    assert torch.equal(got, _bwd(kernels, g, bounds, n_t, paper, h, w, False))
+    _close(got, pooling.psroi_bwd_ref(g, bounds, n_t, paper, h, w))
+
+
+def test_backward_block_size(kernels):
+    """the backward's pixel warps a block: 8 while the accumulators (and the
+    channel map's inverse) fit, fewer past that, 0 when not one does."""
+    assert kernels.cpu_bwd_warps(1519, 7, 256) == 8
+    assert kernels.cpu_bwd_warps(1519 * 4, 7, 256) == 6
+    assert kernels.cpu_bwd_warps(15000, 7, 256) == 1
+    assert kernels.cpu_bwd_warps(20000, 7, 256) == 0
+
+
+def test_ctypes_signatures_match_the_source(monkeypatch):
+    """the argument types the wrapper declares for each exported function are
+    the C signature's in psroi.cu (a wrong count truncates pointers and
+    64-bit strides without an error)."""
+    import re
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    lib = Lib()
+    monkeypatch.setattr(pooling._build, "load", lambda name: lib)
+    pooling._psroi_lib()
+    c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+               "long long": ctypes.c_longlong}
+    src = (CSRC / "psroi.cu").read_text()
+    found = re.findall(r"^(?:int|size_t) (d2t_\w+)\(([^)]*)\)", src, flags=re.M)
+    assert {name for name, _ in found} == {"d2t_psroi_fwd", "d2t_psroi_bwd", "d2t_psroi_bwd_smem_bytes",
+                                           "d2t_psroi_bwd_blocks_per_sm"}
+    for name, params in found:
+        want = [c_types[" ".join(p.split()[:-1])] for p in params.replace("\n", " ").split(",")]
+        assert getattr(lib, name).argtypes == want, name
