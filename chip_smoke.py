@@ -17,14 +17,15 @@ Phases, each printing a line:
      from d_max 17 / 20, the bf16 backward at KS = 4 and 5).
   4. psroi: PSROIPool's two kernels (ops/csrc/psroi.cu) at the R-FCN
      head's shapes (8 frames, 38x75, 256 rois, k 7; the class head's 1519
-     and the box head's 196 channels), both channel layouts and both map
-     layouts (contiguous NHWC, the main path's, checked on the head's own
-     convolutions, and NCHW), rois past the border and empty bins: the
-     forward against the
-     plain einsum form and the backward against autograd through it within
-     1e-5 of the largest magnitude, the backward bitwise the same on a
-     repeat; each kernel's time beside its bound, the plain version's time
-     and one head's memory.
+     and the box head's 196 channels) on bin-major maps gathered by both
+     channel maps, in both storages (contiguous NHWC, the main path's,
+     checked on the head's own convolutions, and NCHW), rois past the
+     border and empty bins: the forward against the plain einsum form and
+     the backward against autograd through it within 1e-5 of the largest
+     magnitude, the backward bitwise the same on a repeat; each kernel's
+     time beside its bound (reference-layout and bin-major elements), the
+     plain version's time, one head's memory, and the R-FCN's bin-major
+     weight gather and its gradient's fold (bitwise on a repeat).
   5. slice: the full-width detect-and-track path (cfg/default.yaml: ResNet-50,
      608x1200, bf16) with random weights from a seed, through
      Detector.__call__ and Detector.detect_pairs on a batch of BATCH_SIZE
@@ -1437,23 +1438,23 @@ def _read_counts() -> dict:
 
 
 def check_map_layouts(what: str, fn) -> None:
-    """run fn with the R-FCN's PSROIPool calls watched; fail unless every
-    call gets contiguous NHWC maps, the layout the psroi phase times as the
-    main path's."""
+    """run fn with the R-FCN's PSROIPool calls (the op d2t::psroi_fwd on its
+    bin-major maps) watched; fail unless every call gets contiguous NHWC
+    maps, the layout the psroi phase times as the main path's."""
     from detect_to_track_tpu_torch.models import rfcn
 
-    seen, pool = [], rfcn.ps_roi_pool
+    seen, pool = [], rfcn.psroi_fwd
 
-    def watched(fm, *args, **kwargs):
-        seen.append("NHWC" if fm.is_contiguous() else "NCHW" if fm.permute(0, 3, 1, 2).is_contiguous()
-                    else str(fm.stride()))
-        return pool(fm, *args, **kwargs)
+    def watched(fg, *args, **kwargs):
+        seen.append("NHWC" if fg.is_contiguous() else "NCHW" if fg.permute(0, 3, 1, 2).is_contiguous()
+                    else str(fg.stride()))
+        return pool(fg, *args, **kwargs)
 
-    rfcn.ps_roi_pool = watched
+    rfcn.psroi_fwd = watched
     try:
         fn()
     finally:
-        rfcn.ps_roi_pool = pool
+        rfcn.psroi_fwd = pool
     if not seen or set(seen) != {"NHWC"}:
         raise AssertionError(f"{what}: PSROIPool got maps of storage {seen}, expected contiguous NHWC")
     log(f"{what}: PSROIPool's maps contiguous NHWC in all {len(seen)} calls")
@@ -2038,11 +2039,14 @@ def _psroi_bin_pixels(bounds, h, w):
 
 
 def psroi_fwd_bound_ms(bounds, n_t, k, paper, h, w):
-    """least time of the forward on these inputs: each map element that a
-    bin of its channel holds (some roi's bin (i, j) for a (t, i, j) that the
-    channel map sends there) read once, the outputs written once, the
-    bounds read once; against an add per pixel of a non-empty bin and
-    target and a division per output (f32). Returns (ms, bound_by)."""
+    """least time of the forward on these inputs: each element of the
+    reference-layout maps that a bin of its channel holds (some roi's bin
+    (i, j) for a (t, i, j) that the channel map sends there) read once, the
+    outputs written once, the bounds read once; against an add per pixel of
+    a non-empty bin and target and a division per output (f32). Returns
+    (ms, bound_by, bin-major ms): the last the same bound for the bin-major
+    maps the kernel reads, where (t, i, j) that the quirk sends to one
+    channel are separate elements."""
     import torch
 
     from detect_to_track_tpu_torch.ops.torch_ref import ps_roi_pool_channel_map
@@ -2053,9 +2057,13 @@ def psroi_fwd_bound_ms(bounds, n_t, k, paper, h, w):
     needed = torch.zeros(b, n_t * k * k, h * w, device=bounds.device)
     needed.index_add_(1, ps_roi_pool_channel_map(n_t, k, paper, bounds.device).reshape(-1),
                       cover.expand(b, n_t, k * k, h * w).reshape(b, n_t * k * k, h * w))
-    nbytes = 4 * (int((needed > 0).sum()) + b * r * n_t * k * k + bounds.numel())
     ops = float(pixels.sum()) * n_t + b * r * n_t * k * k
-    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / F32_FLOPS * 1e3, "operations"))
+
+    def bound(elements):
+        nbytes = 4 * (elements + b * r * n_t * k * k + bounds.numel())
+        return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / F32_FLOPS * 1e3, "operations"))
+
+    return (*bound(int((needed > 0).sum())), bound(int(cover.sum()) * n_t)[0])
 
 
 def psroi_bwd_bound_ms(bounds, n_t, k, h, w):
@@ -2085,19 +2093,24 @@ def phase_psroi(smi: str):
     """PSROIPool's kernels (ops/csrc/psroi.cu) at the R-FCN head's working
     shapes (2 * BATCH_SIZE frames, the 38x75 maps, MAX_ROIS proposal-like
     rois with rois past the border and empty bins, k 7): the class head (31
-    targets, 1519 channels) and the box head (4 targets, 196 channels), each
-    in both channel layouts (the quirk and the paper's) and both map layouts
+    targets, 1519 channels) and the box head (4 targets, 196 channels), on
+    bin-major maps (random reference-layout maps' channels gathered by
+    either channel map, the quirk and the paper's) in both storages
     (contiguous NHWC, the main path's: the R-FCN's convolutions run
     channels-last, checked here on the head itself and in the slice and
     train phases; and NHWC views of NCHW storage). The forward against the
     plain einsum form and the backward against autograd through it, within
     PSROI_TOL of the largest magnitude; empty bins exactly 0; the backward
-    bitwise the same on a repeat and through ps_roi_pool's autograd. Each
-    kernel timed by CUDA events in every layout, beside its bound; at the
-    main path's layouts (contiguous NHWC, the configured channel map) beside
-    the plain version's time and the memory one head's forward and backward
-    take. Outside the main-path launch count. Returns {kernel: [row per
-    head]} and the largest absolute errors."""
+    bitwise the same on a repeat and through the op's autograd; ps_roi_pool
+    on the reference maps bitwise the op on their gather. Each kernel timed
+    by CUDA events in every layout, beside its bound (PR 13's count, on the
+    reference-layout maps) and the bin-major maps' bound; at the main
+    path's layouts (contiguous NHWC, the configured channel map) beside the
+    plain version's time, the memory one head's forward and backward take,
+    and the R-FCN's weight gather (BinMajorRows) and its gradient's fold on
+    the head's 1x1 conv (the fold bitwise on a repeat, within 1e-6 of
+    index_add_). Outside the main-path launch count. Returns {kernel: [row
+    per head]} and the largest absolute errors."""
     import torch
 
     from detect_to_track_tpu_torch.config import load_config
@@ -2118,76 +2131,134 @@ def phase_psroi(smi: str):
     with torch.no_grad():
         check_map_layouts(f"[psroi] the R-FCN head ({cfg.COMPUTE_DTYPE})",
                           lambda: rfcn(torch.randn(b, fh, fw, 2048, device="cuda"), rois))
+    reduce_channels = rfcn.cls_sm_conv.in_channels
     del rfcn
     log(f"[psroi] {b} frames x {fh}x{fw}, {r} rois, k {k}: {int(empty.sum())} of {empty.numel()} bins empty; "
-        f"main path: contiguous NHWC maps, paper layout {cfg.FIX_PSROI_CHANNEL_MAP}; card: {smi}")
+        f"main path: contiguous NHWC bin-major maps, paper layout {cfg.FIX_PSROI_CHANNEL_MAP}; card: {smi}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {"psroi_fwd": [], "psroi_bwd": []}
     errs = {"psroi_fwd": 0.0, "psroi_bwd": 0.0}
     for head, n_t in (("class", cfg.N_CLASSES + 1), ("box", 4)):
         c = n_t * k * k
         for paper in (False, True):
+            perm = pooling.bin_major_channels(n_t, k, paper, "cuda")
             for nchw in (False, True):
-                base = torch.randn((b, c, fh, fw) if nchw else (b, fh, fw, c), device="cuda", generator=gen)
+                ref_maps = torch.randn((b, c, fh, fw) if nchw else (b, fh, fw, c), device="cuda", generator=gen)
+                base = ref_maps[:, perm] if nchw else ref_maps[..., perm]  # bin-major, in the same storage
                 view = (lambda y: y.permute(0, 2, 3, 1)) if nchw else (lambda y: y)  # (B, H, W, C)
-                fm = view(base)
-                got = pooling.psroi_fwd_cuda(fm, bounds, n_t, paper)
-                ref = pooling.ps_roi_pool_plain(fm, bounds, n_t, paper)
+                fg = view(base)
+                got = pooling.psroi_fwd_cuda(fg, bounds, n_t)
+                ref = pooling.ps_roi_pool_plain(fg, bounds, n_t)
                 g = torch.randn(got.shape, device="cuda", generator=gen)
                 x = base.detach().requires_grad_()
-                (want,) = torch.autograd.grad(pooling.ps_roi_pool_plain(view(x), bounds, n_t, paper), x, g)
+                (want,) = torch.autograd.grad(pooling.ps_roi_pool_plain(view(x), bounds, n_t), x, g)
                 want = view(want)
-                d1 = pooling.psroi_bwd_cuda(g, bounds, n_t, paper, fh, fw)
-                d2 = pooling.psroi_bwd_cuda(g, bounds, n_t, paper, fh, fw)
+                d1 = pooling.psroi_bwd_cuda(g, bounds, n_t, fh, fw)
+                d2 = pooling.psroi_bwd_cuda(g, bounds, n_t, fh, fw)
                 x2 = base.detach().requires_grad_()  # through the op and its autograd, as RFCN.forward calls it
-                out = pooling.ps_roi_pool(view(x2), rois, n_t, k, paper)
+                out = torch.ops.d2t.psroi_fwd(view(x2), bounds, n_t)
                 out.backward(g)
+                public = pooling.ps_roi_pool(view(ref_maps), rois, n_t, k, paper)  # the gather, then the op
                 torch.cuda.synchronize()
                 f_scale, b_scale = ref.abs().max().item(), want.abs().max().item()
                 f_err, b_err = (got - ref).abs().max().item(), (d1 - want).abs().max().item()
                 errs["psroi_fwd"] = max(errs["psroi_fwd"], f_err)
                 errs["psroi_bwd"] = max(errs["psroi_bwd"], b_err)
                 zeros = bool((got.permute(0, 1, 3, 4, 2)[empty] == 0).all())
-                same = torch.equal(d1, d2) and torch.equal(view(x2.grad), d1) and torch.equal(out, got)
+                same = (torch.equal(d1, d2) and torch.equal(view(x2.grad), d1) and torch.equal(out, got)
+                        and torch.equal(public, got))
                 layout = f"{head} head, {'paper' if paper else 'quirk'} map, {'NCHW' if nchw else 'NHWC'} storage"
                 if not (f_err <= PSROI_TOL * f_scale and b_err <= PSROI_TOL * b_scale and zeros and same):
                     raise AssertionError(f"PSROIPool kernels, {layout}: forward err {f_err:.3e} (max|ref| "
                                          f"{f_scale:.3e}), backward err {b_err:.3e} (max|ref| {b_scale:.3e}), empty "
-                                         f"bins 0 {zeros}, backward repeatable and = autograd's {same}")
-                fwd_ms = cuda_time_ms(lambda: pooling.psroi_fwd_cuda(fm, bounds, n_t, paper))
-                bwd_ms = cuda_time_ms(lambda: pooling.psroi_bwd_cuda(g, bounds, n_t, paper, fh, fw))
-                fb, fby = psroi_fwd_bound_ms(bounds, n_t, k, paper, fh, fw)
+                                         f"bins 0 {zeros}, backward repeatable and = autograd's, ps_roi_pool = the "
+                                         f"op {same}")
+                fwd_ms = cuda_time_ms(lambda: pooling.psroi_fwd_cuda(fg, bounds, n_t))
+                bwd_ms = cuda_time_ms(lambda: pooling.psroi_bwd_cuda(g, bounds, n_t, fh, fw))
+                fb, fby, fb_bm = psroi_fwd_bound_ms(bounds, n_t, k, paper, fh, fw)
                 bb, bby = psroi_bwd_bound_ms(bounds, n_t, k, fh, fw)
-                blocks = pooling._psroi_lib().d2t_psroi_bwd_blocks_per_sm(c, k, r)
-                msg = (f"[psroi] {layout}: forward {fwd_ms:.4f} ms (bound {fb:.4f}, {fby}; err {f_err:.2e}, max|ref| "
-                       f"{f_scale:.2e}), backward {bwd_ms:.4f} ms (bound {bb:.4f}, {bby}; err {b_err:.2e}, max|ref| "
-                       f"{b_scale:.2e}; {blocks} blocks an SM); backward bitwise on a repeat and through autograd")
+                blocks = pooling._psroi_lib().d2t_psroi_bwd_blocks_per_sm(n_t, k)
+                msg = (f"[psroi] {layout}: forward {fwd_ms:.4f} ms (bound {fb:.4f}, {fby}, reference-layout "
+                       f"elements; bin-major elements {fb_bm:.4f}; err {f_err:.2e}, max|ref| {f_scale:.2e}), "
+                       f"backward {bwd_ms:.4f} ms (bound {bb:.4f}, {bby}; err {b_err:.2e}, max|ref| {b_scale:.2e}; "
+                       f"{blocks} blocks an SM); backward bitwise on a repeat and through autograd")
                 if not nchw and paper == cfg.FIX_PSROI_CHANNEL_MAP:  # the main path's layouts
-                    plain_fwd = cuda_time_ms(lambda: pooling.ps_roi_pool_plain(fm, bounds, n_t, paper), iters=5)
-                    plain_bwd = cuda_time_ms(lambda: pooling.psroi_bwd_ref(g, bounds, n_t, paper, fh, fw), iters=5)
+                    plain_fwd = cuda_time_ms(lambda: pooling.ps_roi_pool_plain(fg, bounds, n_t), iters=5)
+                    plain_bwd = cuda_time_ms(lambda: pooling.psroi_bwd_ref(g, bounds, n_t, fh, fw), iters=5)
 
                     def step(pool):
                         y = base.detach().requires_grad_()
                         pool(view(y)).backward(g)
 
-                    mem_kernel = _peak_mib(lambda: step(lambda y: pooling.ps_roi_pool(y, rois, n_t, k, paper)))
-                    mem_plain = _peak_mib(lambda: step(lambda y: pooling.ps_roi_pool_plain(y, bounds, n_t, paper)))
+                    mem_kernel = _peak_mib(lambda: step(lambda y: torch.ops.d2t.psroi_fwd(y, bounds, n_t)))
+                    mem_plain = _peak_mib(lambda: step(lambda y: pooling.ps_roi_pool_plain(y, bounds, n_t)))
                     # the backward's cost without hits: rois whose row bins
                     # hold every row and whose column bins lie past the map
                     no_hit = pooling.psroi_bounds(torch.tensor([0.5, 1.4, 1.0, 0.2], device="cuda").expand(b, r, 4),
                                                   k, fh, fw)
-                    no_hit_ms = cuda_time_ms(lambda: pooling.psroi_bwd_cuda(g, no_hit, n_t, paper, fh, fw))
+                    no_hit_ms = cuda_time_ms(lambda: pooling.psroi_bwd_cuda(g, no_hit, n_t, fh, fw))
+                    gather_ms, fold_ms, fold_host_ms = psroi_weight_gather_ms(n_t, k, paper, reduce_channels, gen)
                     rows["psroi_fwd"].append(dict(head=head, ms=fwd_ms, plain_ms=plain_fwd, bound_ms=fb, bound_by=fby))
                     rows["psroi_bwd"].append(dict(head=head, ms=bwd_ms, plain_ms=plain_bwd, bound_ms=bb, bound_by=bby))
                     msg += (f"; plain forward {plain_fwd:.4f} ms, plain backward (psroi_bwd_ref) {plain_bwd:.4f} ms; "
                             f"forward + backward peak {mem_kernel:.1f} MiB (plain {mem_plain:.1f} MiB); backward "
                             f"with rois that hold no pixel (every row bin held, column bins past the map) "
-                            f"{no_hit_ms:.4f} ms")
+                            f"{no_hit_ms:.4f} ms; the 1x1 conv's weight and bias gathered bin-major: device "
+                            f"{gather_ms:.4f} ms, gathered and folded back (forward + backward) device {fold_ms:.4f} "
+                            f"ms, host {fold_host_ms:.4f} ms a call")
                 log(msg)
-                del base, fm, got, ref, g, x, want, d1, d2, x2, out
+                del ref_maps, base, fg, got, ref, g, x, want, d1, d2, x2, out, public
     torch.cuda.empty_cache()
     return rows, errs
 
+
+def psroi_weight_gather_ms(n_t, k, paper, in_channels, gen):
+    """the R-FCN's bin-major weight gather (BinMajorRows) on one head's 1x1
+    conv (T k^2 x in_channels weight and its bias): the gradients' fold
+    bitwise the same on a repeat and within 1e-6 of the largest magnitude
+    of index_add_ (atomics; another order). Returns the device ms of the
+    gather and of the gather with its backward (torch.profiler's kernel
+    time a call) and the host ms a call of the latter (CUDA events around
+    back-to-back calls: the host's pace where it is slower than the card)."""
+    import torch
+
+    from detect_to_track_tpu_torch.ops import pooling
+
+    rows = pooling.BinMajorRows(n_t, k, paper).cuda()
+    c = n_t * k * k
+    params = (torch.randn(c, in_channels, 1, 1, device="cuda", generator=gen).requires_grad_(),
+              torch.randn(c, device="cuda", generator=gen).requires_grad_())
+    cots = tuple(torch.randn(p.shape, device="cuda", generator=gen) for p in params)
+
+    def fold():
+        return torch.autograd.grad(rows(*params), params, cots)
+
+    got, again = fold(), fold()
+    for p, cot, d1, d2 in zip(params, cots, got, again):
+        want = torch.zeros_like(p).index_add_(0, rows.perm, cot)
+        err, scale = (d1 - want).abs().max().item(), want.abs().max().item()
+        if not (torch.equal(d1, d2) and err <= 1e-6 * scale):
+            raise AssertionError(f"the bin-major gather's fold of a {tuple(p.shape)} gradient: repeatable "
+                                 f"{torch.equal(d1, d2)}, err against index_add_ {err:.3e} (max|ref| {scale:.3e})")
+    with torch.no_grad():
+        gather_ms = device_ms(lambda: rows(*params))
+    return gather_ms, device_ms(fold), cuda_time_ms(fold)
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    """the card's kernel time a call of fn, by torch.profiler (the sum of its
+    kernels' device times over iters warm calls), whatever the host's pace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.self_device_time_total for e in prof.key_averages() if e.device_type == cuda) / iters / 1e3
 
 
 def phase_profile(label, fn, top: int = 15):

@@ -13,6 +13,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from ..ops.pooling import BinMajorRows
 from ..utils import resolve_device
 from .correlation_tracker import CorrelationTracker
 from .resnet import FrozenBatchNorm, ResNetBackbone
@@ -106,7 +107,8 @@ class DetectTrackModule(nn.Module):
 
 def init_weights_(model: nn.Module, gen: torch.Generator) -> None:
     """lecun-normal (std 1/sqrt(fan_in)) conv and linear weights, zero
-    biases, identity FrozenBatchNorm; all draws from `gen`."""
+    biases, identity FrozenBatchNorm, the R-FCN's bin-major gather tables;
+    all draws from `gen`."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -117,3 +119,5 @@ def init_weights_(model: nn.Module, gen: torch.Generator) -> None:
             elif isinstance(m, FrozenBatchNorm):
                 m.scale.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, BinMajorRows):
+                m.reset_tables()

@@ -14,10 +14,15 @@ one frame (fm (H, W, C), rois (R, 4)) or a batch of frames (fm (B, H, W,
 C), rois (B, R, 4)).
 
 PSROIPool's einsum form is the plain version of two CUDA kernels
-(`csrc/psroi.cu`, built by nvcc at first use and called through ctypes):
-`ps_roi_pool` calls the registered op `d2t::psroi_fwd` on every device, and
-its autograd formula calls `d2t::psroi_bwd`, a deterministic backward with
-no atomics. On CUDA tensors the ops launch the kernels (float32 maps of any
+(`csrc/psroi.cu`, built by nvcc at first use and called through ctypes),
+the registered op `d2t::psroi_fwd` and its autograd formula `d2t::psroi_bwd`,
+a deterministic backward with no atomics. The ops take bin-major maps:
+channel (i k + j) T + t holds target t of bin (i, j) (`bin_major_channels`),
+so a bin's targets are contiguous. The R-FCN's 1x1 convolutions write them
+directly, their weight and bias rows gathered by `BinMajorRows`, whose
+backward folds the gathered rows' gradient in a fixed order; `ps_roi_pool`
+takes maps in the reference's channel layout and gathers their channels
+first. On CUDA tensors the ops launch the kernels (float32 maps of any
 strides; other dtypes raise); on CPU tensors they run their plain versions.
 The ops take the bins' integer bounds, computed by torch_ref._bin_bounds on
 the maps' device, so the kernels' geometry is bitwise the plain version's;
@@ -138,11 +143,14 @@ def ps_roi_pool(
     """position-sensitive average ROI pooling (reference
     ps_roipool_cuda.cu:10-71).
 
-    fm: ([B,] H, W, n_targets * k^2) score maps; rois: ([B,] R, 4).
-    paper_layout=False replicates the (t+1)*(i*k+j) channel quirk.
-    impl="einsum": the op `d2t::psroi_fwd` (its backward `d2t::psroi_bwd`):
-    the kernels for CUDA tensors, the plain einsum form for CPU tensors;
-    impl="sat": the summed-area form on any device.
+    fm: ([B,] H, W, n_targets * k^2) score maps in the reference's channel
+    layout; rois: ([B,] R, 4). paper_layout=False replicates the
+    (t+1)*(i*k+j) channel quirk. impl="einsum": the maps' channels gathered
+    bin-major (`bin_major_channels`; autograd's index backward, which adds
+    with atomics on the card), then the op `d2t::psroi_fwd` (its backward
+    `d2t::psroi_bwd`): the kernels for CUDA tensors, the plain einsum form
+    for CPU tensors; impl="sat": the summed-area form on any device. The
+    R-FCN does not come here: its convolutions write bin-major maps.
     Returns ([B,] R, n_targets, k, k).
     """
     if fm.shape[-1] != n_targets * r_hw * r_hw:
@@ -155,7 +163,8 @@ def ps_roi_pool(
     if impl == "sat":
         out = _ps_roi_pool_sat(fm, rois, n_targets, r_hw, paper_layout)
         return out[0] if squeeze else out
-    out = psroi_fwd(fm, psroi_bounds(rois, r_hw, fm.shape[1], fm.shape[2]), n_targets, paper_layout)
+    fg = fm[..., bin_major_channels(n_targets, r_hw, paper_layout, fm.device)]
+    out = psroi_fwd(fg, psroi_bounds(rois, r_hw, fm.shape[1], fm.shape[2]), n_targets)
     return out[0] if squeeze else out
 
 
@@ -178,38 +187,106 @@ def _bounds_masks(bounds: torch.Tensor, fm_h: int, fm_w: int, dtype):
     return rmask, cmask, numel
 
 
-def ps_roi_pool_plain(fm: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool) -> torch.Tensor:
+def ps_roi_pool_plain(fg: torch.Tensor, bounds: torch.Tensor, n_targets: int) -> torch.Tensor:
     """the plain version of psroi_fwd_cuda (the einsum form, differentiable):
-    fm (B, H, W, T k^2), bounds (B, R, 4, k) -> (B, R, T, k, k) in fm's
-    float type (f32, or f64)."""
-    _, fm_h, fm_w, _ = fm.shape
+    bin-major fg (B, H, W, k^2 T), bounds (B, R, 4, k) -> (B, R, T, k, k) in
+    fg's float type (f32, or f64)."""
+    b, fm_h, fm_w, _ = fg.shape
     r_hw = bounds.shape[-1]
-    f = fm.to(_float_type(fm.dtype))
+    f = fg.to(_float_type(fg.dtype)).reshape(b, fm_h, fm_w, r_hw, r_hw, n_targets).permute(0, 1, 2, 5, 3, 4)
     rmask, cmask, numel = _bounds_masks(bounds, fm_h, fm_w, f.dtype)
-    # one static channel gather: (B, H, W, T, k, k) indexed by (t, i, j)
-    fg = f[..., ps_roi_pool_channel_map(n_targets, r_hw, paper_layout, fm.device)]
-    p1 = torch.einsum("brjw,bhwtij->brhtij", cmask, fg)
+    p1 = torch.einsum("brjw,bhwtij->brhtij", cmask, f)
     sums = torch.einsum("brih,brhtij->brtij", rmask, p1)
     return _average(sums, numel[:, :, None])
 
 
-def psroi_bwd_ref(
-    g: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool, fm_h: int, fm_w: int
-) -> torch.Tensor:
+def psroi_bwd_ref(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, fm_h: int, fm_w: int) -> torch.Tensor:
     """the plain version of psroi_bwd_cuda: the adjoint of ps_roi_pool_plain
-    written out (the average's division, the two einsums transposed, the
-    channel gather's scatter), g (B, R, T, k, k) -> dfm (B, H, W, T k^2),
-    contiguous, in g's float type. Channels no (t, i, j) reaches get 0."""
+    written out (the average's division, the two einsums transposed), g (B,
+    R, T, k, k) -> bin-major dfg (B, H, W, k^2 T), contiguous, in g's float
+    type."""
     b, _, _, r_hw, _ = g.shape
     gf = g.to(_float_type(g.dtype))
     rmask, cmask, numel = _bounds_masks(bounds, fm_h, fm_w, gf.dtype)
     numel = numel[:, :, None]
     dsums = torch.where(numel > 0, gf, torch.zeros_like(gf)) / numel.clamp(min=1.0)
     dp1 = torch.einsum("brih,brtij->brhtij", rmask, dsums)
-    dfg = torch.einsum("brjw,brhtij->bhwtij", cmask, dp1)
-    ch = ps_roi_pool_channel_map(n_targets, r_hw, paper_layout, g.device).reshape(-1)
-    dfm = torch.zeros((b, fm_h, fm_w, n_targets * r_hw * r_hw), dtype=gf.dtype, device=g.device)
-    return dfm.index_add_(-1, ch, dfg.reshape(b, fm_h, fm_w, -1))
+    dfg = torch.einsum("brjw,brhtij->bhwijt", cmask, dp1)
+    return dfg.reshape(b, fm_h, fm_w, -1).contiguous()
+
+
+def bin_major_channels(n_targets: int, r_hw: int, paper_layout: bool, device=None) -> torch.Tensor:
+    """(T k^2,) int64: the reference-layout channel ch(t, i, j) that
+    bin-major channel (i k + j) T + t holds, so fm[..., perm] is fm's
+    bin-major maps."""
+    return ps_roi_pool_channel_map(n_targets, r_hw, paper_layout, device).permute(1, 2, 0).reshape(-1)
+
+
+def bin_major_fold(n_targets: int, r_hw: int, paper_layout: bool):
+    """the tables of a bin-major row gather, int64 on the CPU: perm
+    (bin_major_channels); rows, the reference channels some bin-major
+    channel reads, ascending; fold (len(rows), D): for each such channel
+    the bin-major channels that read it, ascending, padded with T k^2 (a
+    zero row) to D, the largest count (31 for the class head's channel 0
+    under the quirk; 1 under the paper's layout, a permutation)."""
+    perm = bin_major_channels(n_targets, r_hw, paper_layout, "cpu")  # on the CPU under any default device
+    c = perm.numel()
+    counts = torch.bincount(perm, minlength=c)
+    order = torch.argsort(perm, stable=True)  # bin-major channels grouped by the channel they read
+    rank = torch.arange(c, device="cpu") - (counts.cumsum(0) - counts)[perm[order]]  # their places in a group
+    fold = torch.full((c, int(counts.max())), c, dtype=torch.int64, device="cpu")
+    fold[perm[order], rank] = order
+    rows = torch.nonzero(counts).flatten()
+    return perm, rows, fold[rows]
+
+
+class _BinMajorRows(torch.autograd.Function):
+    """a 1x1 convolution's weight (C, ...) and bias (C,) rows gathered by perm
+    (index_select), whose backward folds the gradients of the rows that read
+    one row in a fixed order: weight and bias side by side with a zero row
+    below, a padded gather by fold and a sum over the padding axis, then
+    each folded row copied once into place. No atomics, so bitwise the same
+    on a repeat, on the card too (index_select's own backward, index_add_,
+    adds with atomics there)."""
+
+    @staticmethod
+    def forward(ctx, weight, bias, perm, rows, fold):
+        ctx.save_for_backward(rows, fold)
+        ctx.weight_shape = weight.shape
+        return weight.index_select(0, perm), bias.index_select(0, perm)
+
+    @staticmethod
+    def backward(ctx, g_weight, g_bias):
+        rows, fold = ctx.saved_tensors
+        g = F.pad(torch.cat([g_weight.reshape(g_weight.shape[0], -1), g_bias[:, None]], 1), (0, 0, 0, 1))
+        folded = g.index_select(0, fold.reshape(-1)).unflatten(0, fold.shape).sum(1)
+        dx = g.new_zeros((ctx.weight_shape[0], g.shape[1])).index_copy_(0, rows, folded)
+        return dx[:, :-1].reshape(ctx.weight_shape), dx[:, -1], None, None, None
+
+
+class BinMajorRows(torch.nn.Module):
+    """gathers the rows of a 1x1 convolution's weight (T k^2, ...) and bias
+    (T k^2,), in the reference's channel order, bin-major: a convolution
+    with them writes the bin-major maps of the one with the originals, the
+    same floats, which the ops take. The gradient of a row sums the
+    gradients of the rows that read it (several under the quirk) in a fixed
+    order. The tables are buffers that move with the module and stay out of
+    its state_dict; a module built on the meta device and materialized with
+    to_empty gets them back from reset_tables."""
+
+    def __init__(self, n_targets: int, r_hw: int, paper_layout: bool) -> None:
+        super().__init__()
+        self.layout = n_targets, r_hw, paper_layout
+        for name, table in zip(("perm", "rows", "fold"), bin_major_fold(*self.layout)):
+            self.register_buffer(name, table, persistent=False)
+
+    @torch.no_grad()
+    def reset_tables(self) -> None:
+        for name, table in zip(("perm", "rows", "fold"), bin_major_fold(*self.layout)):
+            getattr(self, name).copy_(table)
+
+    def forward(self, weight: torch.Tensor, bias: torch.Tensor):
+        return _BinMajorRows.apply(weight, bias, self.perm, self.rows, self.fold)
 
 
 # ---------------------------------------------------------------- the kernels
@@ -218,63 +295,44 @@ def psroi_bwd_ref(
 def _psroi_lib() -> ctypes.CDLL:
     lib = _build.load("psroi")
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-    lib.d2t_psroi_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [i64] * 4 + [i32, ptr]
+    lib.d2t_psroi_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [i64] * 4 + [ptr]
     lib.d2t_psroi_fwd.restype = i32
-    lib.d2t_psroi_bwd.argtypes = [ptr] + [i64] * 5 + [ptr] * 4 + [i32] * 7 + [i64] * 4 + [ptr]
+    lib.d2t_psroi_bwd.argtypes = [ptr] + [i64] * 5 + [ptr] * 4 + [i32] * 6 + [ptr]
     lib.d2t_psroi_bwd.restype = i32
-    lib.d2t_psroi_bwd_smem_bytes.argtypes = [i32] * 3
+    lib.d2t_psroi_bwd_smem_bytes.argtypes = [i32] * 2
     lib.d2t_psroi_bwd_smem_bytes.restype = ctypes.c_size_t
-    lib.d2t_psroi_bwd_blocks_per_sm.argtypes = [i32] * 3
+    lib.d2t_psroi_bwd_blocks_per_sm.argtypes = [i32] * 2
     lib.d2t_psroi_bwd_blocks_per_sm.restype = i32
     return lib
 
 
 def _check_bounds(bounds: torch.Tensor, device: torch.device, b: int) -> int:
-    """raise unless bounds is a contiguous, 16-byte aligned (b, R, 4, k)
-    int32 tensor on device with k in 1-32 (the backward loads a roi's
-    bounds as k 16-byte vectors); returns k."""
+    """raise unless bounds is a contiguous (b, R, 4, k) int32 tensor on
+    device with k in 1-32 (a bin mask is 32 bits); returns k."""
     if (bounds.device != device or bounds.dtype != torch.int32 or bounds.dim() != 4 or bounds.shape[0] != b
-            or bounds.shape[2] != 4 or not 1 <= bounds.shape[3] <= 32 or not bounds.is_contiguous()
-            or bounds.data_ptr() % 16):
-        raise ValueError(f"expected contiguous, 16-byte aligned ({b}, R, 4, k) int32 bin bounds on {device}, k "
-                         f"1-32; got {bounds.dtype} {tuple(bounds.shape)} on {bounds.device}")
+            or bounds.shape[2] != 4 or not 1 <= bounds.shape[3] <= 32 or not bounds.is_contiguous()):
+        raise ValueError(f"expected contiguous ({b}, R, 4, k) int32 bin bounds on {device}, k 1-32; got "
+                         f"{bounds.dtype} {tuple(bounds.shape)} on {bounds.device}")
     return bounds.shape[3]
 
 
-_INVERSE: dict = {}
-
-
-def _channel_inverse(n_targets: int, r_hw: int, paper_layout: bool, device: torch.device):
-    """the channel map's inverse as a CSR on device: (ptr (C + 1), idx (T k^2))
-    int32, the flat (t, i, j) of channel c being idx[ptr[c]:ptr[c + 1]],
-    ascending."""
-    key = (n_targets, r_hw, paper_layout, device)
-    if key not in _INVERSE:
-        ch = ps_roi_pool_channel_map(n_targets, r_hw, paper_layout).reshape(-1)
-        ptr = torch.zeros(ch.numel() + 1, dtype=torch.int64)
-        ptr[1:] = torch.bincount(ch, minlength=ch.numel()).cumsum(0)
-        idx = torch.argsort(ch, stable=True)
-        _INVERSE[key] = (ptr.to(device, torch.int32), idx.to(device, torch.int32))
-    return _INVERSE[key]
-
-
-def psroi_fwd_cuda(fm: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool) -> torch.Tensor:
-    """launch the forward kernel: fm (B, H, W, T k^2) float32 CUDA maps of
-    any strides, bounds (B, R, 4, k) int32 -> (B, R, T, k, k) float32.
-    Counts each launch in `psroi_fwd_cuda.launches`."""
-    if not fm.is_cuda or fm.dtype != torch.float32 or fm.dim() != 4:
-        raise ValueError(f"the PSROIPool kernel takes (B, H, W, C) float32 CUDA maps, got {fm.dtype} "
-                         f"{tuple(fm.shape)} on {fm.device}")
-    b, h, w, c = fm.shape
-    k = _check_bounds(bounds, fm.device, b)
+def psroi_fwd_cuda(fg: torch.Tensor, bounds: torch.Tensor, n_targets: int) -> torch.Tensor:
+    """launch the forward kernel: bin-major fg (B, H, W, k^2 T) float32 CUDA
+    maps of any strides, bounds (B, R, 4, k) int32 -> (B, R, T, k, k)
+    float32. Counts each launch in `psroi_fwd_cuda.launches`."""
+    if not fg.is_cuda or fg.dtype != torch.float32 or fg.dim() != 4:
+        raise ValueError(f"the PSROIPool kernel takes (B, H, W, C) float32 CUDA maps, got {fg.dtype} "
+                         f"{tuple(fg.shape)} on {fg.device}")
+    b, h, w, c = fg.shape
+    k = _check_bounds(bounds, fg.device, b)
     if c != n_targets * k * k:
-        raise ValueError(f"expected {n_targets * k * k} channels, got maps of shape {tuple(fm.shape)}")
+        raise ValueError(f"expected {n_targets * k * k} channels, got maps of shape {tuple(fg.shape)}")
     r = bounds.shape[1]
-    out = torch.empty((b, r, n_targets, k, k), dtype=torch.float32, device=fm.device)
-    with torch.cuda.device(fm.device):
-        stream = torch.cuda.current_stream(fm.device).cuda_stream
-        err = _psroi_lib().d2t_psroi_fwd(fm.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, r, n_targets, k, h, w,
-                                         *fm.stride(), int(paper_layout), stream)
+    out = torch.empty((b, r, n_targets, k, k), dtype=torch.float32, device=fg.device)
+    with torch.cuda.device(fg.device):
+        stream = torch.cuda.current_stream(fg.device).cuda_stream
+        err = _psroi_lib().d2t_psroi_fwd(fg.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, r, n_targets, k, h, w,
+                                         *fg.stride(), stream)
     if err != 0:
         raise RuntimeError(f"PSROIPool forward kernel launch failed: CUDA error {err}")
     psroi_fwd_cuda.launches += 1
@@ -284,13 +342,13 @@ def psroi_fwd_cuda(fm: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper
 psroi_fwd_cuda.launches = 0
 
 
-def psroi_bwd_cuda(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool, fm_h: int,
-                   fm_w: int) -> torch.Tensor:
-    """launch the backward kernel: the forward's cotangent g (B, R, T, k, k)
-    float32 CUDA tensor of any strides and bounds (B, R, 4, k) int32 -> dfm
-    (B, H, W, C) contiguous (the R-FCN's maps' layout), every element
-    written. Deterministic: bitwise the same on a repeat. Counts each launch
-    in `psroi_bwd_cuda.launches`."""
+def psroi_bwd_cuda(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, fm_h: int, fm_w: int) -> torch.Tensor:
+    """launch the backward (its prologue, then the kernel): the forward's
+    cotangent g (B, R, T, k, k) float32 CUDA tensor of any strides and
+    bounds (B, R, 4, k) int32 -> bin-major dfg (B, H, W, k^2 T) contiguous
+    (the R-FCN's maps' layout), every element written. Deterministic:
+    bitwise the same on a repeat. Counts each call in
+    `psroi_bwd_cuda.launches`."""
     if not g.is_cuda or g.dtype != torch.float32 or g.dim() != 5:
         raise ValueError(f"the PSROIPool backward kernel takes a (B, R, T, k, k) float32 CUDA cotangent, got "
                          f"{g.dtype} {tuple(g.shape)} on {g.device}")
@@ -299,71 +357,70 @@ def psroi_bwd_cuda(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_
         raise ValueError(f"cotangent {tuple(g.shape)} does not match bounds {tuple(bounds.shape)} and "
                          f"{n_targets} targets")
     c = n_targets * k * k
-    dfm = torch.empty((b, fm_h, fm_w, c), dtype=torch.float32, device=g.device)
     lib = _psroi_lib()
-    if lib.d2t_psroi_bwd_smem_bytes(c, k, r) == 0:
+    if lib.d2t_psroi_bwd_smem_bytes(n_targets, k) == 0:
         raise ValueError(f"{c} channels do not fit a backward block's shared memory")
-    ptr, idx = _channel_inverse(n_targets, k, paper_layout, g.device)
+    dfg = torch.empty((b, fm_h, fm_w, c), dtype=torch.float32, device=g.device)
+    scaled = torch.empty((b, r, k, k, n_targets), dtype=torch.float32, device=g.device)  # g / n, bin-major
+    masks = torch.empty(b * (fm_h + fm_w) * r, dtype=torch.int32, device=g.device)  # the bins holding a row, a column
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.d2t_psroi_bwd(g.data_ptr(), *g.stride(), bounds.data_ptr(), ptr.data_ptr(), idx.data_ptr(),
-                                dfm.data_ptr(), b, r, n_targets, k, fm_h, fm_w, c, *dfm.stride(), stream)
+        err = lib.d2t_psroi_bwd(g.data_ptr(), *g.stride(), bounds.data_ptr(), scaled.data_ptr(), masks.data_ptr(),
+                                dfg.data_ptr(), b, r, n_targets, k, fm_h, fm_w, stream)
     if err != 0:
         raise RuntimeError(f"PSROIPool backward kernel launch failed: CUDA error {err}")
     psroi_bwd_cuda.launches += 1
-    return dfm
+    return dfg
 
 
 psroi_bwd_cuda.launches = 0
 
 
 @torch.library.custom_op("d2t::psroi_fwd", mutates_args=(), device_types="cpu")
-def psroi_fwd(fm: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool) -> torch.Tensor:
-    """PSROIPool's forward, the op `d2t::psroi_fwd`: fm (B, H, W, T k^2),
-    bounds (B, R, 4, k) int32 (psroi_bounds) -> (B, R, T, k, k). The kernel
-    for CUDA tensors (psroi_fwd_cuda), the plain einsum form for CPU
+def psroi_fwd(fg: torch.Tensor, bounds: torch.Tensor, n_targets: int) -> torch.Tensor:
+    """PSROIPool's forward, the op `d2t::psroi_fwd`: bin-major fg (B, H, W,
+    k^2 T), bounds (B, R, 4, k) int32 (psroi_bounds) -> (B, R, T, k, k). The
+    kernel for CUDA tensors (psroi_fwd_cuda), the plain einsum form for CPU
     tensors; its backward is `d2t::psroi_bwd`. Returns a contiguous tensor."""
-    return ps_roi_pool_plain(fm, bounds, n_targets, paper_layout).contiguous()
+    return ps_roi_pool_plain(fg, bounds, n_targets).contiguous()
 
 
 psroi_fwd.register_kernel("cuda")(psroi_fwd_cuda)
 
 
 @psroi_fwd.register_fake
-def _psroi_fwd_fake(fm: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool) -> torch.Tensor:
+def _psroi_fwd_fake(fg: torch.Tensor, bounds: torch.Tensor, n_targets: int) -> torch.Tensor:
     b, r, _, k = bounds.shape
-    return fm.new_empty((b, r, n_targets, k, k), dtype=_float_type(fm.dtype))
+    return fg.new_empty((b, r, n_targets, k, k), dtype=_float_type(fg.dtype))
 
 
 @torch.library.custom_op("d2t::psroi_bwd", mutates_args=(), device_types="cpu")
-def psroi_bwd(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool, fm_h: int,
-              fm_w: int) -> torch.Tensor:
+def psroi_bwd(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, fm_h: int, fm_w: int) -> torch.Tensor:
     """PSROIPool's backward, the op `d2t::psroi_bwd`: the cotangent g (B, R,
-    T, k, k) -> dfm (B, H, W, C) contiguous, whatever the maps' strides
-    (autograd takes a gradient in any layout). The kernel for CUDA tensors
-    (psroi_bwd_cuda), psroi_bwd_ref for CPU tensors."""
-    return psroi_bwd_ref(g, bounds, n_targets, paper_layout, fm_h, fm_w)
+    T, k, k) -> bin-major dfg (B, H, W, k^2 T) contiguous, whatever the
+    maps' strides (autograd takes a gradient in any layout). The kernel for
+    CUDA tensors (psroi_bwd_cuda), psroi_bwd_ref for CPU tensors."""
+    return psroi_bwd_ref(g, bounds, n_targets, fm_h, fm_w)
 
 
 psroi_bwd.register_kernel("cuda")(psroi_bwd_cuda)
 
 
 @psroi_bwd.register_fake
-def _psroi_bwd_fake(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, paper_layout: bool, fm_h: int,
-                    fm_w: int) -> torch.Tensor:
+def _psroi_bwd_fake(g: torch.Tensor, bounds: torch.Tensor, n_targets: int, fm_h: int, fm_w: int) -> torch.Tensor:
     return g.new_empty((g.shape[0], fm_h, fm_w, n_targets * g.shape[-1] ** 2), dtype=_float_type(g.dtype))
 
 
 def _psroi_setup_context(ctx, inputs, output) -> None:
-    fm, bounds, n_targets, paper_layout = inputs
-    ctx.save_for_backward(bounds)  # not fm: the backward does not read the maps
-    ctx.n_targets, ctx.paper_layout = n_targets, paper_layout
-    ctx.fm_hw = fm.shape[1], fm.shape[2]
+    fg, bounds, n_targets = inputs
+    ctx.save_for_backward(bounds)  # not fg: the backward does not read the maps
+    ctx.n_targets = n_targets
+    ctx.fm_hw = fg.shape[1], fg.shape[2]
 
 
 def _psroi_backward(ctx, grad):
     (bounds,) = ctx.saved_tensors
-    return psroi_bwd(grad, bounds, ctx.n_targets, ctx.paper_layout, *ctx.fm_hw), None, None, None
+    return psroi_bwd(grad, bounds, ctx.n_targets, *ctx.fm_hw), None, None
 
 
 psroi_fwd.register_autograd(_psroi_backward, setup_context=_psroi_setup_context)

@@ -454,28 +454,32 @@ def _psroi_problem(seed, b, r, h, w, c, nchw, device):
 @pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
 @pytest.mark.parametrize("head", PSROI_HEADS, ids=["class", "box"])
 def test_psroi_kernels_match_plain(cuda, head, paper, nchw):
-    """ps_roi_pool on CUDA maps at the working shapes (8 frames, 38x75, 256
-    rois, k 7) launches the forward kernel, and its autograd the backward
-    kernel; the forward within 1e-5 of the largest magnitude of the plain
-    einsum form (another summation order), empty bins exactly 0; the
-    gradient within 1e-5 of autograd through the plain form and bitwise the
-    same on a repeat."""
+    """d2t::psroi_fwd on bin-major CUDA maps (the reference maps' channels
+    gathered by either channel map, in NCHW or contiguous NHWC storage) at
+    the working shapes (8 frames, 38x75, 256 rois, k 7) launches the
+    forward kernel, and its autograd the backward kernel; the forward
+    within 1e-5 of the largest magnitude of the plain einsum form (another
+    summation order), empty bins exactly 0; the gradient within 1e-5 of
+    autograd through the plain form and bitwise the same on a repeat;
+    ps_roi_pool on the reference maps gives the same forward."""
     n_t, c = head
     k, fh, fw = 7, 38, 75
-    base, rois = _psroi_problem(n_t, 8, 256, fh, fw, c, nchw, cuda)
+    ref_maps, rois = _psroi_problem(n_t, 8, 256, fh, fw, c, nchw, cuda)
+    perm = pooling.bin_major_channels(n_t, k, paper, cuda)
+    base = ref_maps[:, perm] if nchw else ref_maps[..., perm]  # bin-major, in the same storage
     view = (lambda x: x.permute(0, 2, 3, 1)) if nchw else (lambda x: x)
     bounds = pooling.psroi_bounds(rois, k, fh, fw)
     g = torch.randn(8, 256, n_t, k, k, device=cuda)
     grads, counts = [], (pooling.psroi_fwd_cuda.launches, pooling.psroi_bwd_cuda.launches)
     for _ in range(2):
         x = base.detach().requires_grad_()
-        out = pooling.ps_roi_pool(view(x), rois, n_t, k, paper)
+        out = torch.ops.d2t.psroi_fwd(view(x), bounds, n_t)
         out.backward(g)
         grads.append(x.grad)
     torch.cuda.synchronize()
     assert (pooling.psroi_fwd_cuda.launches - counts[0], pooling.psroi_bwd_cuda.launches - counts[1]) == (2, 2)
     x = base.detach().requires_grad_()
-    ref = pooling.ps_roi_pool_plain(view(x), bounds, n_t, paper)
+    ref = pooling.ps_roi_pool_plain(view(x), bounds, n_t)
     (want,) = torch.autograd.grad(ref, x, g)
     torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-5 * ref.abs().max().item())
     i0, i1, j0, j1 = bounds.unbind(2)
@@ -483,6 +487,7 @@ def test_psroi_kernels_match_plain(cuda, head, paper, nchw):
     assert empty.any() and (out.detach().permute(0, 1, 3, 4, 2)[empty] == 0).all()
     assert grads[0].is_contiguous() and torch.equal(grads[0], grads[1])
     torch.testing.assert_close(grads[0], want, rtol=0.0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(pooling.ps_roi_pool(view(ref_maps), rois, n_t, k, paper), out)
 
 
 def test_psroi_rejects_bad_input(cuda):
@@ -494,12 +499,11 @@ def test_psroi_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="float32"):
         pooling.ps_roi_pool(base.to(torch.bfloat16), rois, 3, 3)
     with pytest.raises(ValueError, match="int32"):
-        pooling.psroi_fwd_cuda(base, bounds.long(), 3, False)
+        pooling.psroi_fwd_cuda(base, bounds.long(), 3)
     with pytest.raises(ValueError, match="channels"):
-        pooling.psroi_fwd_cuda(base[..., :18], bounds, 3, False)
+        pooling.psroi_fwd_cuda(base[..., :18], bounds, 3)
     with pytest.raises(ValueError, match="float32"):
-        pooling.psroi_bwd_cuda(torch.zeros(2, 16, 3, 3, 3, device=cuda, dtype=torch.float64), bounds, 3, False, 9,
-                               11)
+        pooling.psroi_bwd_cuda(torch.zeros(2, 16, 3, 3, 3, device=cuda, dtype=torch.float64), bounds, 3, 9, 11)
     assert (pooling.psroi_fwd_cuda.launches, pooling.psroi_bwd_cuda.launches) == counts
 
 
@@ -511,27 +515,48 @@ def test_psroi_ops_opcheck(cuda):
         base, rois = _psroi_problem(1, 2, 24, 9, 11, 27, nchw, cuda)
         fm = (base.permute(0, 2, 3, 1) if nchw else base).requires_grad_()
         bounds = pooling.psroi_bounds(rois, 3, 9, 11)
-        torch.library.opcheck(torch.ops.d2t.psroi_fwd.default, (fm, bounds, 3, False))
+        torch.library.opcheck(torch.ops.d2t.psroi_fwd.default, (fm, bounds, 3))
         g = torch.randn(2, 24, 3, 3, 3, device=cuda)
-        torch.library.opcheck(torch.ops.d2t.psroi_bwd.default, (g, bounds, 3, nchw, 9, 11))
+        torch.library.opcheck(torch.ops.d2t.psroi_bwd.default, (g.transpose(3, 4) if nchw else g, bounds, 3, 9, 11))
 
 
 def test_rfcn_maps_are_contiguous_nhwc(cuda, monkeypatch):
     """the R-FCN's convolutions run channels-last on a contiguous NHWC c5 (as
     the backbone gives it), so both heads hand PSROIPool contiguous NHWC
-    maps: the layout the kernels are tuned and timed at."""
+    bin-major maps: the layout the kernels are tuned and timed at."""
     from detect_to_track_tpu_torch.models import rfcn
 
     seen = []
 
-    def spy(fm, *args, **kwargs):
-        seen.append(fm.is_contiguous())
-        return pooling.ps_roi_pool(fm, *args, **kwargs)
+    def spy(fg, *args, **kwargs):
+        seen.append(fg.is_contiguous())
+        return pooling.psroi_fwd(fg, *args, **kwargs)
 
-    monkeypatch.setattr(rfcn, "ps_roi_pool", spy)
+    monkeypatch.setattr(rfcn, "psroi_fwd", spy)
     for dtype in (torch.float32, torch.bfloat16):
         head = rfcn.RFCN(5, k=3, in_channels=64, reduce_channels=32, dtype=dtype).to(cuda)
         x = torch.randn(2, 9, 13, 64, device=cuda)
         rois = torch.rand(2, 8, 4, device=cuda)
         head(x, rois)
     assert seen == [True] * 4
+
+
+def test_rfcn_weight_gradient_is_deterministic(cuda):
+    """an R-FCN head's gradients on the card, twice: bitwise the same (the
+    bin-major weight gather folds its gradient without atomics, and the
+    PSROIPool backward has none), finite, and nonzero for both 1x1 convs."""
+    from detect_to_track_tpu_torch.models import rfcn
+
+    torch.manual_seed(0)
+    head = rfcn.RFCN(30, k=7, in_channels=64, reduce_channels=32).to(cuda)
+    x = torch.randn(2, 9, 13, 64, device=cuda)
+    rois = torch.rand(2, 16, 4, device=cuda)
+    grads = []
+    for _ in range(2):
+        head.zero_grad()
+        c_hat, b_hat = head(x, rois)
+        (c_hat.square().sum() + b_hat.sum()).backward()
+        grads.append({n: p.grad.clone() for n, p in head.named_parameters()})
+    assert all(torch.equal(grads[0][n], grads[1][n]) and grads[0][n].isfinite().all() for n in grads[0])
+    assert all(grads[0][f"{conv}.{p}"].abs().max() > 0 for conv in ("cls_sm_conv", "reg_sm_conv")
+               for p in ("weight", "bias"))

@@ -170,6 +170,28 @@ def test_rfcn_matches_jax(models, rng):
     assert got[0].shape == (2, N_ROIS, N_CLASSES + 1)
 
 
+@pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
+def test_rfcn_bin_major_maps_are_the_reference_maps_gathered(paper, rng):
+    """the R-FCN's 1x1 convolutions with their weight and bias rows gathered
+    bin-major (BinMajorRows) write the reference-layout maps' channels
+    gathered by the channel map: the maps PSROIPool's kernels read. The
+    parameters and state_dict keys stay the reference's."""
+    from detect_to_track_tpu_torch.models.rfcn import RFCN
+    from detect_to_track_tpu_torch.ops.pooling import bin_major_channels
+
+    k = 3
+    head = RFCN(N_CLASSES, k=k, in_channels=16, reduce_channels=8, paper_channel_layout=paper)
+    assert set(head.state_dict()) == {f"{m}.{p}" for m in ("channel_reduce", "cls_sm_conv", "reg_sm_conv")
+                                      for p in ("weight", "bias")}
+    t = T(rng.randn(2, 8, 5, 7).astype(np.float32)).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        for conv, rows, n_t in ((head.cls_sm_conv, head.cls_rows, N_CLASSES + 1), (head.reg_sm_conv, head.reg_rows, 4)):
+            ref = conv(t).permute(0, 2, 3, 1)[..., bin_major_channels(n_t, k, paper)]
+            got = torch.nn.functional.conv2d(t, *rows(conv.weight, conv.bias)).permute(0, 2, 3, 1)
+            assert got.is_contiguous()
+            assert torch.equal(got, ref)
+
+
 def _pyramids(rng, c3_full=True):
     s = 2 if c3_full else 1
 

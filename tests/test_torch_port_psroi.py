@@ -1,17 +1,22 @@
 """PSROIPool's ops and kernels on the CPU: the registered ops `d2t::psroi_fwd`
-/ `d2t::psroi_bwd` (their CPU bodies, the plain versions) against the JAX
-package's ps_roi_pool and its jax.grad; the kernels' own source
+/ `d2t::psroi_bwd` (their CPU bodies, the plain versions) on bin-major maps
+(the reference-layout maps' channels gathered by the channel map) against
+the JAX package's ps_roi_pool and its jax.grad; the kernels' own source
 (ops/csrc/psroi.cu) run on CPU threads against the plain forward and
-autograd through it, in both channel layouts and both map layouts
-(contiguous NHWC, the R-FCN's, and NHWC views of NCHW storage), with rois
-whose bin edges sit on pixel boundaries, rois past the border, empty bins, a
-NaN roi and rois in several of the backward's staging chunks; the backward
-bitwise the same on a repeat.
+autograd through it, for both channel maps and both storages of the
+bin-major maps (contiguous NHWC, the R-FCN's, and NHWC views of NCHW
+storage), with rois whose bin edges sit on pixel boundaries, rois past the
+border, empty bins, a NaN roi and rois in several of the backward's staging
+chunks; the backward bitwise the same on a repeat. The R-FCN's bin-major
+weight gather (BinMajorRows): its rows, and its gradient's fold against
+index_add_, bitwise on a repeat.
 
-Tolerances: the kernels sum each bin (forward) and each channel's terms
+Tolerances: the kernels sum each bin (forward) and each element's terms
 (backward) in another order than the einsum form: f32 rounding of sums of
 tens of terms, within 1e-5 of the largest magnitude. The JAX package's
-einsum form against the port's: the same bound."""
+einsum form against the port's: the same bound. The fold sums a row's
+gradients in another order than index_add_: 1e-6 of the largest magnitude
+(at most 31 terms)."""
 
 import ctypes
 import subprocess
@@ -64,6 +69,15 @@ def _maps(rng, b, h, w, c, nchw):
     return torch.from_numpy(rng.standard_normal((b, h, w, c), dtype=np.float32))
 
 
+def _bin_major(fm, n_t, k, paper):
+    """fm's channels gathered bin-major, in fm's storage: an NHWC view of
+    NCHW storage stays one."""
+    perm = pooling.bin_major_channels(n_t, k, paper)
+    if fm.is_contiguous():
+        return fm[..., perm]
+    return fm.permute(0, 3, 1, 2)[:, perm].permute(0, 2, 3, 1)
+
+
 def _close(got, ref):
     scale = ref.abs().max().item()
     assert scale > 0
@@ -78,8 +92,9 @@ def _close(got, ref):
 @pytest.mark.parametrize("case", CASES[:3], ids=str)
 def test_op_cpu_path_matches_jax(case, paper, nchw):
     """torch.ops.d2t.psroi_fwd on CPU tensors, forward and autograd (its
-    registered backward, d2t::psroi_bwd), against JAX's ps_roi_pool and
-    jax.grad, frame by frame, from the same numpy inputs."""
+    registered backward, d2t::psroi_bwd, then the channel gather's), on the
+    maps gathered bin-major, against JAX's ps_roi_pool and jax.grad on the
+    reference-layout maps, frame by frame, from the same numpy inputs."""
     n_t, k, h, w = case
     rng = np.random.default_rng(k * 100 + n_t)
     rois = _rois(rng, 2)
@@ -87,7 +102,8 @@ def test_op_cpu_path_matches_jax(case, paper, nchw):
     cot = rng.standard_normal((2, rois.shape[1], n_t, k, k), dtype=np.float32)
     base = (fm.permute(0, 3, 1, 2) if nchw else fm).detach().clone().requires_grad_()
     x = base.permute(0, 2, 3, 1) if nchw else base
-    out = torch.ops.d2t.psroi_fwd(x, pooling.psroi_bounds(torch.from_numpy(rois), k, h, w), n_t, paper)
+    out = torch.ops.d2t.psroi_fwd(_bin_major(x, n_t, k, paper), pooling.psroi_bounds(torch.from_numpy(rois), k, h, w),
+                                  n_t)
     (out * torch.from_numpy(cot)).sum().backward()
     grad = base.grad.permute(0, 2, 3, 1) if nchw else base.grad
     fm_np = fm.contiguous().numpy()
@@ -104,24 +120,28 @@ def test_op_cpu_path_matches_jax(case, paper, nchw):
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_plain_backward_matches_autograd(case, paper):
     """psroi_bwd_ref (the backward op's CPU body) against autograd through
-    the plain forward; ps_roi_pool's CPU path (the forward op's CPU body)
-    is the plain forward; the backward op returns contiguous NHWC."""
+    the plain forward on bin-major maps; ps_roi_pool's CPU path (the
+    channel gather, then the forward op's CPU body) is the plain forward of
+    the gathered maps, and its gradient the backward op's, summed back by
+    the gather's backward; the backward op returns contiguous NHWC."""
     n_t, k, h, w = case
     rng = np.random.default_rng(k + n_t)
     rois = torch.from_numpy(_rois(rng, 2))
     bounds = pooling.psroi_bounds(rois, k, h, w)
-    fm = _maps(rng, 2, h, w, n_t * k * k, False).requires_grad_()
-    out = pooling.ps_roi_pool_plain(fm, bounds, n_t, paper)
+    fm = _maps(rng, 2, h, w, n_t * k * k, False)
+    fg = _bin_major(fm, n_t, k, paper).requires_grad_()
+    out = pooling.ps_roi_pool_plain(fg, bounds, n_t)
     assert torch.equal(out, pooling.ps_roi_pool(fm, rois, n_t, k, paper))
     g = torch.from_numpy(rng.standard_normal(out.shape, dtype=np.float32))
-    (ref,) = torch.autograd.grad(out, fm, g)
-    got = pooling.psroi_bwd_ref(g, bounds, n_t, paper, h, w)
+    (ref,) = torch.autograd.grad(out, fg, g)
+    got = pooling.psroi_bwd_ref(g, bounds, n_t, h, w)
     _close(got, ref)
-    x = fm.detach().requires_grad_()  # ps_roi_pool's autograd is the backward op's
+    dfg = torch.ops.d2t.psroi_bwd(g, bounds, n_t, h, w)
+    assert dfg.is_contiguous() and torch.equal(dfg, got)
+    x = fm.detach().requires_grad_()  # ps_roi_pool's autograd: the backward op's, then the gather's
     pooling.ps_roi_pool(x, rois, n_t, k, paper).backward(g)
-    assert torch.equal(x.grad, got)
-    dfm = torch.ops.d2t.psroi_bwd(g, bounds, n_t, paper, h, w)
-    assert dfm.is_contiguous() and torch.equal(dfm, got)
+    perm = pooling.bin_major_channels(n_t, k, paper)
+    _close(x.grad, torch.zeros_like(fm).index_add_(-1, perm, got))
 
 
 def test_ops_opcheck_and_fakes():
@@ -132,14 +152,14 @@ def test_ops_opcheck_and_fakes():
     n_t, k, h, w = 3, 3, 9, 11
     bounds = pooling.psroi_bounds(torch.from_numpy(_rois(rng, 2, 2)), k, h, w)
     for nchw in (False, True):
-        fm = _maps(rng, 2, h, w, n_t * k * k, nchw).requires_grad_()
-        torch.library.opcheck(torch.ops.d2t.psroi_fwd.default, (fm, bounds, n_t, False))
+        fg = _maps(rng, 2, h, w, n_t * k * k, nchw).requires_grad_()
+        torch.library.opcheck(torch.ops.d2t.psroi_fwd.default, (fg, bounds, n_t))
         g = torch.randn(2, bounds.shape[1], n_t, k, k)
-        torch.library.opcheck(torch.ops.d2t.psroi_bwd.default, (g, bounds, n_t, nchw, h, w))
-    meta = torch.ops.d2t.psroi_fwd(torch.empty(2, h, w, n_t * k * k, device="meta"), bounds.to("meta"), n_t, False)
+        torch.library.opcheck(torch.ops.d2t.psroi_bwd.default, (g if nchw else g.transpose(3, 4), bounds, n_t, h, w))
+    meta = torch.ops.d2t.psroi_fwd(torch.empty(2, h, w, n_t * k * k, device="meta"), bounds.to("meta"), n_t)
     assert meta.shape == (2, bounds.shape[1], n_t, k, k) and meta.dtype == torch.float32
     meta = torch.ops.d2t.psroi_bwd(torch.empty(2, bounds.shape[1], n_t, k, k, device="meta"), bounds.to("meta"),
-                                   n_t, False, h, w)
+                                   n_t, h, w)
     assert meta.shape == (2, h, w, n_t * k * k)
 
 
@@ -147,20 +167,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     """a CPU tensor never reaches a kernel wrapper: it raises, naming CUDA."""
     bounds = torch.zeros(1, 2, 4, 3, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        pooling.psroi_fwd_cuda(torch.zeros(1, 4, 5, 18), bounds, 2, False)
+        pooling.psroi_fwd_cuda(torch.zeros(1, 4, 5, 18), bounds, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        pooling.psroi_bwd_cuda(torch.zeros(1, 2, 2, 3, 3), bounds, 2, False, 4, 5)
+        pooling.psroi_bwd_cuda(torch.zeros(1, 2, 2, 3, 3), bounds, 2, 4, 5)
 
 
 # ---------------------------------------------------------------- the kernels' source on CPU threads
 
 # psroi.cu's kernels compiled for the CPU, in this process's one thread:
-# a block's CUDA threads run one after another (the forward has no barrier
-# and no warp intrinsic) or as fibers (ucontext), switched in round robin
-# (the backward): __syncthreads a barrier of the block's fibers, __syncwarp
-# one of the warp's 32, __ballot_sync a slot a lane between two arrivals
-# there; shared memory a static buffer, __ldg a plain load; built without FMA
-# contraction (the kernels have no product to contract).
+# a block's CUDA threads run one after another (the backward's prologue has
+# no barrier and no warp intrinsic) or as fibers (ucontext), switched in
+# round robin (the forward and the backward): __syncthreads a barrier of the
+# block's fibers, __syncwarp one of the warp's 32, __ballot_sync and
+# __shfl_xor_sync a slot a lane between two arrivals there; shared memory a
+# static 16-byte aligned buffer, __ldg a plain load, float4 a struct; built
+# without FMA contraction (the kernels have no product to contract).
 _CUDA_ON_CPU = r"""
 #include <ucontext.h>
 
@@ -201,6 +222,7 @@ inline void barrier_wait(Barrier& b) {
 }
 inline Barrier g_block_bar, g_warp_bar[32];
 inline unsigned g_warp_slot[32][32];
+inline float g_warp_val[32][32];
 inline void __syncthreads() { barrier_wait(g_block_bar); }
 inline void __syncwarp() { barrier_wait(g_warp_bar[threadIdx.x / 32]); }
 inline unsigned __ballot_sync(unsigned, int p) {
@@ -212,18 +234,30 @@ inline unsigned __ballot_sync(unsigned, int p) {
   barrier_wait(g_warp_bar[wp]);
   return v;
 }
+inline float __shfl_xor_sync(unsigned, float v, int mask) {
+  const unsigned wp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  g_warp_val[wp][lane] = v;
+  barrier_wait(g_warp_bar[wp]);
+  const float r = g_warp_val[wp][lane ^ mask];
+  barrier_wait(g_warp_bar[wp]);
+  return r;
+}
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 struct int4 {
   int x, y, z, w;
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
 };
 template <typename T>
 inline T __ldg(const T* p) { return *p; }
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
-inline float g_smem[1 << 16];
+alignas(16) inline float g_smem[1 << 16];
 """
 
 _CPU_LAUNCH = r"""
@@ -265,25 +299,24 @@ void run_blocks(dim3 grid, int nth, bool fibers, F f) {
             }
       }
 }
-extern "C" void cpu_psroi_fwd(const float* fm, const int* bounds, float* out, int b, int r, int t, int k, int h,
-                              int w, long long sb, long long sh, long long sw, long long sc, int paper) {
-  const long long n_bins = static_cast<long long>(b) * r * k * k;
-  const long long per_block = kFwdThreads / kWarp;
-  run_blocks(dim3((n_bins + per_block - 1) / per_block), kFwdThreads, false,
-             [=] { psroi_fwd_kernel(fm, bounds, out, n_bins, r, t, k, h, w, sb, sh, sw, sc, paper); });
+extern "C" void cpu_psroi_fwd(const float* fg, const int* bounds, float* out, int b, int r, int t, int k, int h,
+                              int w, long long sb, long long sh, long long sw, long long sc) {
+  run_blocks(dim3(b * r), kFwdThreads, true,
+             [=] { psroi_fwd_kernel(fg, bounds, out, r, t, k, h, w, sb, sh, sw, sc); });
 }
-// warps 0: the launch's own choice (bwd_warps)
+// the prologue into gs and masks, then the kernel; warps 0: the launch's own choice (bwd_warps)
 extern "C" void cpu_psroi_bwd(const float* g, long long gsb, long long gsr, long long gst, long long gsi,
-                              long long gsj, const int* bounds, const int* inv_ptr, const int* inv_idx, float* dfm,
-                              int b, int r, int t, int k, int h, int w, int c, long long sb, long long sh,
-                              long long sw, long long sc, int warps) {
-  if (warps == 0) warps = bwd_warps(c, k, r);
-  const int px = warps * kBwdRounds;
-  run_blocks(dim3((w + px - 1) / px, h, b), warps * kWarp, true, [=] {
-    bwd_kernel(k)(g, gsb, gsr, gst, gsi, gsj, bounds, inv_ptr, inv_idx, dfm, sb, sh, sw, sc, r, t, k, w, c);
-  });
+                              long long gsj, const int* bounds, float* gs, unsigned* masks, float* dfg, int b, int r,
+                              int t, int k, int h, int w, int warps) {
+  unsigned* cols = masks + static_cast<long long>(b) * h * r;
+  run_blocks(dim3(b * r), kPrologueThreads, true,
+             [=] { psroi_bwd_prologue_kernel(g, gsb, gsr, gst, gsi, gsj, bounds, gs, masks, cols, r, t, k, h, w); });
+  if (warps == 0) warps = bwd_warps(t, k);
+  const int px = warps * warp_groups(t);
+  run_blocks(dim3((w + px - 1) / px, h, b), warps * kWarp, true,
+             [=] { bwd_kernel(k)(gs, masks, cols, dfg, r, t, k, h, w); });
 }
-extern "C" int cpu_bwd_warps(int c, int k, int r) { return bwd_warps(c, k, r); }
+extern "C" int cpu_bwd_warps(int t, int k) { return bwd_warps(t, k); }
 """
 
 
@@ -292,13 +325,14 @@ def _kernels_on_cpu(out):
     src = (CSRC / "psroi.cu").read_text()
     edits = [
         ("#include <cuda_runtime.h>\n", _CUDA_ON_CPU),
-        ("  extern __shared__ float smem[];\n", "  float* smem = g_smem;\n"),
+        ("extern __shared__ float smem[];", "float* smem = g_smem;"),
+        ("extern __shared__ int bd[];", "int* bd = reinterpret_cast<int*>(g_smem);"),
         ("namespace {", ""),
         ("}  // namespace", ""),
     ]
     for old, new in edits:
         assert old in src, f"psroi.cu changed: update this emulation ({old.strip()!r} not found)"
-        src = src.replace(old, new, 1)
+        src = src.replace(old, new)
     src = src[: src.index('extern "C" {')] + _CPU_LAUNCH
     (out / "psroi_cpu.cpp").write_text(src)
     cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(out / "lib.so"),
@@ -307,9 +341,9 @@ def _kernels_on_cpu(out):
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out / "lib.so"))
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
-    lib.cpu_psroi_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [i64] * 4 + [i32]
-    lib.cpu_psroi_bwd.argtypes = [ptr] + [i64] * 5 + [ptr] * 4 + [i32] * 7 + [i64] * 4 + [i32]
-    lib.cpu_bwd_warps.argtypes = [i32] * 3
+    lib.cpu_psroi_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [i64] * 4
+    lib.cpu_psroi_bwd.argtypes = [ptr] + [i64] * 5 + [ptr] * 4 + [i32] * 7
+    lib.cpu_bwd_warps.argtypes = [i32] * 2
     return lib
 
 
@@ -318,73 +352,74 @@ def kernels(tmp_path_factory):
     return _kernels_on_cpu(tmp_path_factory.mktemp("psroi_cpu"))
 
 
-def _fwd(lib, fm, bounds, n_t, paper):
+def _fwd(lib, fg, bounds, n_t):
     """the forward kernel on CPU threads into a NaN-poisoned output."""
-    b, h, w, _ = fm.shape
+    b, h, w, _ = fg.shape
     r, k = bounds.shape[1], bounds.shape[3]
     out = torch.full((b, r, n_t, k, k), float("nan"))
-    lib.cpu_psroi_fwd(fm.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, r, n_t, k, h, w, *fm.stride(), int(paper))
+    lib.cpu_psroi_fwd(fg.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, r, n_t, k, h, w, *fg.stride())
     return out
 
 
-def _bwd(lib, g, bounds, n_t, paper, h, w, nchw, warps=0):
-    """the backward kernel on CPU threads into a NaN-poisoned dfm of NHWC or
-    (nchw) NCHW storage, returned as its (B, H, W, C) view: the kernel
-    takes dfm's strides."""
+def _bwd(lib, g, bounds, n_t, h, w, warps=0):
+    """the backward (prologue and kernel) on CPU threads into poisoned
+    scratches and a NaN-poisoned dfg (contiguous NHWC, bin-major)."""
     b, r, _, k, _ = g.shape
-    c = n_t * k * k
-    out = torch.full((b, c, h, w) if nchw else (b, h, w, c), float("nan"))
-    dfm = out.permute(0, 2, 3, 1) if nchw else out
-    ptr, idx = pooling._channel_inverse(n_t, k, paper, torch.device("cpu"))
-    lib.cpu_psroi_bwd(g.data_ptr(), *g.stride(), bounds.data_ptr(), ptr.data_ptr(), idx.data_ptr(), dfm.data_ptr(),
-                      b, r, n_t, k, h, w, c, *dfm.stride(), warps)
-    return dfm
+    scaled = torch.full((b, r, k, k, n_t), float("nan"))
+    masks = torch.full((b * (h + w) * r,), -1, dtype=torch.int32)
+    dfg = torch.full((b, h, w, n_t * k * k), float("nan"))
+    lib.cpu_psroi_bwd(g.data_ptr(), *g.stride(), bounds.data_ptr(), scaled.data_ptr(), masks.data_ptr(),
+                      dfg.data_ptr(), b, r, n_t, k, h, w, warps)
+    return dfg
 
 
-def _problem(case, seed, nchw, nan_roi=False):
+def _problem(case, seed, nchw, paper, nan_roi=False):
+    """rng, bin-major maps (the reference maps' channels gathered by the
+    channel map, in NHWC or NCHW storage) and bounds."""
     n_t, k, h, w = case
     rng = np.random.default_rng(seed)
     rois = _rois(rng, 2)
     if nan_roi:
         rois[1, 3] = np.nan
-    fm = _maps(rng, 2, h, w, n_t * k * k, nchw)
-    return rng, fm, pooling.psroi_bounds(torch.from_numpy(rois), k, h, w)
+    fg = _bin_major(_maps(rng, 2, h, w, n_t * k * k, nchw), n_t, k, paper)
+    return rng, fg, pooling.psroi_bounds(torch.from_numpy(rois), k, h, w)
 
 
 @pytest.mark.parametrize("nchw", [False, True], ids=["nhwc", "nchw"])
 @pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
 @pytest.mark.parametrize("case", CASES, ids=str)
 def test_kernels_match_plain(kernels, case, paper, nchw):
-    """both kernels against the plain forward and autograd through it; empty
-    bins exactly 0; every dfm element written; the backward bitwise the same
-    on a repeat (and with fewer warps a block: other rounds, idle warps)."""
+    """both kernels on bin-major maps against the plain forward and autograd
+    through it; empty bins exactly 0; every dfg element written; the
+    backward bitwise the same on a repeat (and with fewer warps a block:
+    other rounds, idle warps)."""
     n_t, k, h, w = case
-    rng, fm, bounds = _problem(case, seed=h * w + n_t, nchw=nchw, nan_roi=True)
-    ref = pooling.ps_roi_pool_plain(fm, bounds, n_t, paper)
-    got = _fwd(kernels, fm, bounds, n_t, paper)
+    rng, fg, bounds = _problem(case, seed=h * w + n_t, nchw=nchw, paper=paper, nan_roi=True)
+    ref = pooling.ps_roi_pool_plain(fg, bounds, n_t)
+    got = _fwd(kernels, fg, bounds, n_t)
     _close(got, ref)
     i0, i1, j0, j1 = bounds.unbind(2)
     empty = ((i1 - i0)[..., :, None] * (j1 - j0)[..., None, :] <= 0)[:, :, None].expand_as(got)
     assert empty.any() and (got[empty] == 0).all()
 
     g = torch.from_numpy(rng.standard_normal(ref.shape, dtype=np.float32))
-    x = fm.detach().requires_grad_()
-    (want,) = torch.autograd.grad(pooling.ps_roi_pool_plain(x, bounds, n_t, paper), x, g)
-    dfm = _bwd(kernels, g, bounds, n_t, paper, h, w, nchw)
-    _close(dfm, want)
-    assert torch.equal(dfm, _bwd(kernels, g, bounds, n_t, paper, h, w, nchw))
-    assert torch.equal(dfm, _bwd(kernels, g, bounds, n_t, paper, h, w, nchw, warps=3))
+    x = fg.detach().requires_grad_()
+    (want,) = torch.autograd.grad(pooling.ps_roi_pool_plain(x, bounds, n_t), x, g)
+    dfg = _bwd(kernels, g, bounds, n_t, h, w)
+    _close(dfg, want)
+    assert torch.equal(dfg, _bwd(kernels, g, bounds, n_t, h, w))
+    assert torch.equal(dfg, _bwd(kernels, g, bounds, n_t, h, w, warps=3))
 
 
 def test_backward_reads_cotangent_strides(kernels):
     """the cotangent of the head's mean over the k x k grid: an expanded
     (stride 0) tensor, read through its strides."""
     case = n_t, k, h, w = CASES[3]
-    rng, fm, bounds = _problem(case, seed=7, nchw=True)
+    rng, _, bounds = _problem(case, seed=7, nchw=True, paper=False)
     g = torch.from_numpy(rng.standard_normal((2, bounds.shape[1], n_t, 1, 1), dtype=np.float32)).expand(-1, -1, -1, k,
                                                                                                           k)
-    want = pooling.psroi_bwd_ref(g.contiguous(), bounds, n_t, False, h, w)
-    _close(_bwd(kernels, g, bounds, n_t, False, h, w, True), want)
+    want = pooling.psroi_bwd_ref(g.contiguous(), bounds, n_t, h, w)
+    _close(_bwd(kernels, g, bounds, n_t, h, w), want)
 
 
 @pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
@@ -400,11 +435,11 @@ def test_kernels_on_arbitrary_bounds(kernels, paper):
     bounds[0, 1] = [[0] * k, [h] * k, [-70000] * k, [w] * k]
     bounds[1, 0] = [[-65530] * k, [6] * k, [-65530] * k, [6] * k]  # 2^16 x 2^16 wraps to n = 0
     bounds = torch.from_numpy(bounds.astype(np.int32))
-    fm = _maps(rng, 2, h, w, n_t * k * k, True)
-    ref = pooling.ps_roi_pool_plain(fm, bounds, n_t, paper)
-    _close(_fwd(kernels, fm, bounds, n_t, paper), ref)
+    fg = _bin_major(_maps(rng, 2, h, w, n_t * k * k, True), n_t, k, paper)
+    ref = pooling.ps_roi_pool_plain(fg, bounds, n_t)
+    _close(_fwd(kernels, fg, bounds, n_t), ref)
     g = torch.from_numpy(rng.standard_normal(ref.shape, dtype=np.float32))
-    _close(_bwd(kernels, g, bounds, n_t, paper, h, w, True), pooling.psroi_bwd_ref(g, bounds, n_t, paper, h, w))
+    _close(_bwd(kernels, g, bounds, n_t, h, w), pooling.psroi_bwd_ref(g, bounds, n_t, h, w))
 
 
 @pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
@@ -417,21 +452,55 @@ def test_backward_in_roi_chunks(kernels, paper):
     rois = torch.from_numpy(np.concatenate([_rois(rng, 2, n_random=280), _rois(rng, 2, n_random=0)], 1))
     assert rois.shape[1] == 300
     bounds = pooling.psroi_bounds(rois, k, h, w)
-    fm = _maps(rng, 2, h, w, n_t * k * k, False)
-    _close(_fwd(kernels, fm, bounds, n_t, paper), pooling.ps_roi_pool_plain(fm, bounds, n_t, paper))
+    fg = _bin_major(_maps(rng, 2, h, w, n_t * k * k, False), n_t, k, paper)
+    _close(_fwd(kernels, fg, bounds, n_t), pooling.ps_roi_pool_plain(fg, bounds, n_t))
     g = torch.from_numpy(rng.standard_normal((2, rois.shape[1], n_t, k, k), dtype=np.float32))
-    got = _bwd(kernels, g, bounds, n_t, paper, h, w, False)
-    assert torch.equal(got, _bwd(kernels, g, bounds, n_t, paper, h, w, False))
-    _close(got, pooling.psroi_bwd_ref(g, bounds, n_t, paper, h, w))
+    got = _bwd(kernels, g, bounds, n_t, h, w)
+    assert torch.equal(got, _bwd(kernels, g, bounds, n_t, h, w))
+    _close(got, pooling.psroi_bwd_ref(g, bounds, n_t, h, w))
 
 
 def test_backward_block_size(kernels):
-    """the backward's pixel warps a block: 8 while the accumulators (and the
-    channel map's inverse) fit, fewer past that, 0 when not one does."""
-    assert kernels.cpu_bwd_warps(1519, 7, 256) == 8
-    assert kernels.cpu_bwd_warps(1519 * 4, 7, 256) == 6
-    assert kernels.cpu_bwd_warps(15000, 7, 256) == 1
-    assert kernels.cpu_bwd_warps(20000, 7, 256) == 0
+    """the backward's warps a block: 8 pixels (8 warps of one pixel at the
+    class head's 31 targets, one warp of 8 pixels at the box head's 4), fewer
+    warps while the accumulators do not fit, 0 when not one warp does."""
+    assert kernels.cpu_bwd_warps(31, 7) == 8
+    assert kernels.cpu_bwd_warps(4, 7) == 1
+    assert kernels.cpu_bwd_warps(200, 7) == 5
+    assert kernels.cpu_bwd_warps(1150, 7) == 1
+    assert kernels.cpu_bwd_warps(1200, 7) == 0
+
+
+# ---------------------------------------------------------------- the R-FCN's bin-major weight gather
+
+
+@pytest.mark.parametrize("paper", [False, True], ids=["quirk", "paper"])
+@pytest.mark.parametrize("n_t", [3, 4, 31])
+def test_bin_major_rows_fold_matches_index_add(n_t, paper):
+    """BinMajorRows on a 1x1 conv's weight and bias: the rows are the
+    bin-major channels' (the reference rows gathered by the channel map);
+    the gradients of the parameters, the padded fold of the gathered rows'
+    gradients, equal index_add_ (autograd's own index_select backward)
+    within f32 rounding, bitwise the same on a repeat; every row that no
+    bin-major channel reads gets 0."""
+    k = 7
+    rows = pooling.BinMajorRows(n_t, k, paper)
+    perm = pooling.bin_major_channels(n_t, k, paper)
+    assert torch.equal(rows.perm, perm)
+    rng = np.random.default_rng(n_t)
+    params = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).requires_grad_()
+              for shape in ((n_t * k * k, 16, 1, 1), (n_t * k * k,))]
+    out = rows(*params)
+    cots = [torch.from_numpy(rng.standard_normal(o.shape, dtype=np.float32)) for o in out]
+    got = torch.autograd.grad(out, params, cots)
+    again = torch.autograd.grad(rows(*params), params, cots)
+    unread = torch.bincount(perm, minlength=perm.numel()) == 0
+    assert (not paper) == bool(unread.any())
+    for x, o, cot, d1, d2 in zip(params, out, cots, got, again):
+        assert torch.equal(o, x.detach()[perm])
+        want = torch.zeros_like(x).index_add_(0, perm, cot)
+        assert torch.equal(d1, d2) and d1.shape == x.shape and (d1[unread] == 0).all()
+        torch.testing.assert_close(d1, want, rtol=0.0, atol=1e-6 * want.abs().max().item())
 
 
 def test_ctypes_signatures_match_the_source(monkeypatch):
