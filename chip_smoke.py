@@ -26,14 +26,27 @@ Phases, each printing a line:
      time beside its bound (reference-layout and bin-major elements), the
      plain version's time, one head's memory, and the R-FCN's bin-major
      weight gather and its gradient's fold (bitwise on a repeat).
-  5. slice: the full-width detect-and-track path (cfg/default.yaml: ResNet-50,
+  5. roipool: ROIPool's kernels (ops/csrc/roipool.cu) at the main paths'
+     shapes (38x75, k 7, proposal-like rois past the border, with empty
+     bins and larger than the frame, the corner-clamped bounds): the
+     tracker's fused head (4 outputs) at BATCH_SIZE pairs with MAX_DETS
+     rois (a pair call) and MAX_LABELS (a training step), and the
+     materialized pooling at the oracle head's 1891 channels; each forward against its plain einsum form and each backward
+     against autograd through it within 1e-5 of the largest magnitude, the
+     backwards bitwise the same on a repeat; each kernel's time (kernel
+     time and events) beside its bound, the plain version's time and the
+     peak MiB of a forward and backward.
+  6. slice: the full-width detect-and-track path (cfg/default.yaml: ResNet-50,
      608x1200, bf16) with random weights from a seed, through
      Detector.__call__ and Detector.detect_pairs on a batch of BATCH_SIZE
-     pairs (3 corr_fwd, 1 nms_mask and 2 psroi_fwd launches per call); the kernel
-     launch counters are reset before and read after; PSROIPool's maps
-     contiguous NHWC (the train phase checks a step's too);
-     the tracks are held against the same run with the plain correlation.
-  6. nms: the NMS kernel (ops/csrc/nms.cu) against its plain fixed-point
+     pairs (3 corr_fwd, 1 nms_mask, 2 psroi_fwd and 1 roipool_linear_fwd
+     launches per call); the kernel launch counters are reset before and
+     read after; PSROIPool's maps contiguous NHWC (the train phase checks a
+     step's too); the tracks are held against the same run with the plain
+     correlation. A profile of the call, then one with the tracker's fused
+     ROIPool head as its einsum form (the parent's), split the tracker
+     stage (`d2t::roi_pool_linear`); the clip and train phases do the same.
+  7. nms: the NMS kernel (ops/csrc/nms.cu) against its plain fixed-point
      loop, keep-masks bitwise, at the working point (8 frames x 3072
      slots, 3000 eligible) on the slice phase's decoded RPN boxes and on
      random boxes at IoU 0.3 and 0.5, at k = 1, 63, 64, 65 and 1000, at
@@ -45,16 +58,16 @@ Phases, each printing a line:
      IoUs of pairs and a float32 step below each; also with NaN, inf,
      subnormal and negative boxes mixed in), the words below it unwritten;
      its time against its own bound.
-  7. export: export_detector on the slice phase's model at pair_batch
+  8. export: export_detector on the slice phase's model at pair_batch
      BATCH_SIZE (torch.export; the program written to a temporary
      directory and deleted after the load), load_detector serving the slice
-     phase's uint8 pairs: 3 corr_fwd, 1 nms_mask and 2 psroi_fwd launches per served
-     call, its outputs bitwise Detector.detect_pairs's, served against live
-     pairs/s; the same for the HOST_S2D program against the HOST_S2D
+     phase's uint8 pairs: 3 corr_fwd, 1 nms_mask, 2 psroi_fwd and 1
+     roipool_linear_fwd launches per served call, its outputs bitwise
+     Detector.detect_pairs's, served against live pairs/s; the same for the HOST_S2D program against the HOST_S2D
      Detector. Prints the export and load seconds and the program's bytes.
-  8. clip: ClipTracker (frame_chunk 8) on a 22-frame clip with the slice
-     phase's Detector: 3 chunks, each one detect_clip call (3 K1, 1 NMS
-     and 2 PSROIPool forward launches)
+  9. clip: ClipTracker (frame_chunk 8) on a 22-frame clip with the slice
+     phase's Detector: 3 chunks, each one detect_clip call (3 K1, 1 NMS,
+     2 PSROIPool forward and 1 fused ROIPool forward launches)
      and the clip's link scores, then one launch of the linker kernel
      (ops/csrc/viterbi.cu); frames/s, device- against host-linked
      tubelets, the kernel against its plain version on the clip's score
@@ -67,30 +80,33 @@ Phases, each printing a line:
      3,100-frame clip at D 512 whose bitmap does not fit in shared memory
      (a kernel that kept it there refused such a clip) against its plain
      version, detect_clip's
-     tracks against the plain correlation, and the call's device time by
-     stage.
-  9. train: full-width joint training steps (the same configuration, the
+     tracks against the plain correlation, the fused tracker head against
+     the materialized one (roipool_fwd on the 1891-channel features) on a
+     chunk in bf16 and in f32, and the call's device time by stage.
+  10. train: full-width joint training steps (the same configuration, the
      package's seeded init, synthetic frame pairs at INPUT_SHAPE): one
      warm-up step, then
-     timed steps with the launch counters reset before and read after;
-     finite losses, frozen stages bitwise unchanged, the track loss's
+     timed steps with the launch counters reset before and read after (a
+     step: 3 K1, 2 + 2 correlation backward, 1 NMS, 2 + 2 PSROIPool and 1
+     + 1 fused ROIPool launches); finite losses, frozen stages bitwise
+     unchanged, the track loss's
      gradients with respect to c4 and c5 held against the plain
      correlation, and one step's device time by stage.
-  10. trainer: the training entry point at full width (cfg/default.yaml with
+  11. trainer: the training entry point at full width (cfg/default.yaml with
      DATA_ROOT a fixture ILSVRC tree from tools/make_fixture_tree.py,
      TRN_SIZE 16, VAL_SIZE 8, REP_SIZE 2): `train.main` for 16 pairs (one
      epoch of 4 steps, validation, report overlays, checkpoints) with the
      kernel counters reset before and read after, a `--resume` to 24 pairs
      that must restore the saved weights and momentum bitwise, then
      `evaluate.main --all-ckpts` over the rotated checkpoints.
-  11. ddp: data parallelism on the one card, a check of correctness and not
+  12. ddp: data parallelism on the one card, a check of correctness and not
      of scaling: make_parallel_train_step (DistributedDataParallel) at world
      size 1 over NCCL against make_train_step, then two ranks (child
      processes of this script, `--ddp-rank`) sharing the card over gloo: a
      2-pair-per-rank step against the single-process 4-pair step,
      make_parallel_detect against Detector.detect_pairs, and train.main with
      NUM_DEVICES 2 for one epoch (ranks bitwise equal, rank 0 alone writes).
-  12. options: HOST_S2D's Detector against the plain stem, a REMAT step
+  13. options: HOST_S2D's Detector against the plain stem, a REMAT step
      against the plain step, sat against einsum pooling (the PSROIPool
      kernels on the card) at the R-FCN head's shapes, and checked_loss_fn
      naming a poisoned loss component.
@@ -110,13 +126,15 @@ its plain loop and timed at 8 x 3072 (clustered random boxes and the
 default anchors moved by random offsets) and 2 x 4096, its IoU launch's
 words held as in the nms phase and timed against its own bound, with the
 IoU kernel's SASS instructions an IoU. `python3 chip_smoke.py --psroi` runs
-the device and build phases and then the psroi phase alone.
+the device and build phases and then the psroi phase alone, and
+`python3 chip_smoke.py --roipool` the roipool phase alone.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -456,8 +474,8 @@ def phase_slice(smi: str):
         torch.cuda.synchronize()
         delta = {k: v - before[k] for k, v in _read_counts().items()}
         if delta != _launches(3, 0, 0, 1, 2, 0):
-            raise AssertionError(f"expected 3 correlation, 1 NMS and 2 PSROIPool forward kernel launches per "
-                                 f"batched call, got {delta}")
+            raise AssertionError(f"expected 3 correlation, 1 NMS, 2 PSROIPool and 1 fused ROIPool forward kernel "
+                                 f"launches per batched call, got {delta}")
         return out
 
     # ---- the main path: counters from 0, read right after ----
@@ -502,6 +520,11 @@ def phase_slice(smi: str):
     log(f"[slice] detect_pairs x{p}: valid per frame {n_valid.tolist()}, "
         f"{[round(s * 1e3, 1) for s in batch_s]} ms per call (first one warms up)")
     log(f"[slice] kernel launches on the main path: {launches} in {n_calls} batched calls")
+    rois = out.boxes[:, 0].reshape(-1, 4)
+    large = (rois[:, 2] > 1) | (rois[:, 3] > 1)
+    log(f"[slice] the tracker's rois (frame-0 boxes, valid or not): {int(large.sum())} of {len(rois)} taller or "
+        f"wider than the frame (largest h {rois[:, 2].max().item():.3g}, w {rois[:, 3].max().item():.3g}): ROIPool's "
+        f"corner clamp fills their bin (0, 0) with up to the whole map")
 
     # ---- the same batch with the plain correlation (not the main path) ----
     det.model.c_tracker.corr_impl = "torch"
@@ -523,6 +546,9 @@ def phase_slice(smi: str):
     log(f"[slice] {pairs_per_s:.2f} pairs/s at batch {p} ({min(batch_s[1:]) * 1e3:.1f} ms per batch); "
         f"__call__ {min(call_s[1:]) * 1e3:.1f} ms per pair; card: {smi}")
     phase_profile(f"detect_pairs x{len(pairs)}", lambda: det.detect_pairs(pairs))
+    with einsum_roi_pool_linear():
+        phase_profile(f"detect_pairs x{len(pairs)}, roi_pool_linear as its einsum form", lambda: det.detect_pairs(pairs),
+                      top=0)
     return launches, det
 
 
@@ -1162,9 +1188,67 @@ def phase_clip(smi: str, det):
     if not err <= tol:
         raise AssertionError("detect_clip's tracks disagree between the kernel and the plain correlation")
 
+    fused_vs_materialized(det, np.stack(frames[:chunk]), outs[0])
+
     phase_profile(f"ClipTracker {n} frames, chunk {chunk}", lambda: tracker(frames))
+    with einsum_roi_pool_linear():
+        phase_profile(f"ClipTracker {n} frames, chunk {chunk}, roi_pool_linear as its einsum form",
+                      lambda: tracker(frames), top=0)
     row = dict(launches=launches["viterbi_multi_link"], err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
     return launches, row
+
+
+def fused_vs_materialized(det, frames, fused):
+    """the tracker's fused head against the materialized one (its oracle:
+    the concatenated features ROI-pooled by roipool_fwd_kernel, flattened
+    in (C, k, k) order, one Linear) at full width, on one detect_clip
+    chunk: in the compute dtype against `fused` (that chunk's main-path
+    output), then both heads in f32. The detections are the same; the
+    transforms within 1e-2 of the largest magnitude in bf16 (the heads
+    round to bf16 at different points: the fused one the maps and volumes
+    before the projection, the materialized one the pooled features; 2^-8
+    of each of the 92,659 products a transform) and 1e-4 in f32 (the sums
+    in another order). The materialized head launches one roipool_fwd a
+    call and no fused-head kernel. Outside the main-path launch count."""
+    import torch
+
+    from detect_to_track_tpu_torch.ops import pooling
+
+    tracker = det.model.c_tracker
+    compute_dtype = tracker.dtype
+    results = {}
+    try:
+        for dtype in (compute_dtype, torch.float32):
+            tracker.dtype = dtype
+            for fused_head in (True, False):
+                if fused_head and dtype == compute_dtype:
+                    results[dtype, True] = fused
+                    continue
+                tracker.fused_head = fused_head
+                before = (pooling.roipool_fwd_cuda.launches, pooling.roipool_linear_fwd_cuda.launches)
+                results[dtype, fused_head] = det.detect_clip(frames)
+                torch.cuda.synchronize()
+                after = (pooling.roipool_fwd_cuda.launches, pooling.roipool_linear_fwd_cuda.launches)
+                want = (0, 1) if fused_head else (1, 0)
+                if (after[0] - before[0], after[1] - before[1]) != want:
+                    raise AssertionError(f"the {'fused' if fused_head else 'materialized'} head launched "
+                                         f"roipool_fwd / roipool_linear_fwd {after[0] - before[0]} / "
+                                         f"{after[1] - before[1]} times, expected {want}")
+    finally:
+        tracker.dtype, tracker.fused_head = compute_dtype, True
+    for dtype, tol_share in ((compute_dtype, 1e-2), (torch.float32, 1e-4)):
+        a, m = results[dtype, True], results[dtype, False]
+        if not torch.equal(a.valid, m.valid) or not torch.equal(a.boxes, m.boxes):
+            raise AssertionError("the detections differ between the fused and the materialized tracker heads")
+        v = m.valid[:-1]
+        scale = m.tracks[v].abs().max().item()
+        err = (a.tracks[v] - m.tracks[v]).abs().max().item()
+        log(f"[clip] the fused tracker head vs the materialized one (roipool_fwd at {len(frames) - 1} pairs, "
+            f"{tracker.fc_channels // tracker.r_hw ** 2} channels), {str(dtype).removeprefix('torch.')}: "
+            f"max_abs_err={err:.3e} (tol {tol_share * scale:.3e}, max|ref| {scale:.3e}) over {int(v.sum())} "
+            f"detections")
+        if not (scale > 0 and err <= tol_share * scale):
+            raise AssertionError(f"the fused tracker head disagrees with the materialized one in {dtype}")
 
 
 def phase_train(smi: str, steps: int = 3):
@@ -1173,8 +1257,9 @@ def phase_train(smi: str, steps: int = 3):
     from the seeded init, synthetic pairs at INPUT_SHAPE packed as uint8. One
     warm-up step, then `steps` timed steps with the kernel counters reset
     before and read after: 3 corr_fwd, 2 corr_bwd_fm0, 2 corr_bwd_fm1, 1
-    nms_mask, 2 psroi_fwd and 2 psroi_bwd launches per step (c3 comes from
-    frozen stages, so its correlation has no backward). Returns the counts."""
+    nms_mask, 2 psroi_fwd, 2 psroi_bwd, 1 roipool_linear_fwd and 1
+    roipool_linear_bwd launches per step (c3 comes from frozen stages, so
+    its correlation has no backward). Returns the counts."""
     import torch
 
     from detect_to_track_tpu_torch import trainer
@@ -1238,6 +1323,8 @@ def phase_train(smi: str, steps: int = 3):
     train_track_grads(model, cfg, batches[0])
     check_map_layouts("[train] a training step", lambda: step(batches[1]))
     phase_profile(f"train step x{p}", lambda: step(batches[1]))
+    with einsum_roi_pool_linear():
+        phase_profile(f"train step x{p}, roi_pool_linear as its einsum form", lambda: step(batches[1]), top=0)
     return launches
 
 
@@ -1279,9 +1366,10 @@ def phase_trainer(smi: str):
     """the training entry point at full width on a fixture ILSVRC tree:
     train.main for 16 pairs (4 steps, 2 validation batches, 2 report pairs)
     with the kernel counters reset before and read after (3 corr_fwd, 2
-    corr_bwd_fm0, 2 corr_bwd_fm1, 1 nms_mask, 2 psroi_fwd and 2 psroi_bwd
-    launches per step, 3 corr_fwd, 1 nms_mask and 2 psroi_fwd per
-    validation batch and per report pair), then a --resume to 24 pairs that
+    corr_bwd_fm0, 2 corr_bwd_fm1, 1 nms_mask, 2 psroi_fwd, 2 psroi_bwd and
+    1 + 1 roipool_linear_fwd / _bwd launches per step, 3 corr_fwd, 1
+    nms_mask, 2 psroi_fwd and 1 roipool_linear_fwd per validation batch and
+    per report pair), then a --resume to 24 pairs that
     must restore the saved weights and momentum bitwise, then evaluate.main
     --all-ckpts over the rotated checkpoints. Returns the counts."""
     import shutil
@@ -1420,12 +1508,19 @@ def _counters():
 
     return {"corr_fwd": corr.corr_fwd_cuda, "corr_bwd_fm0": corr.corr_bwd_fm0_cuda,
             "corr_bwd_fm1": corr.corr_bwd_fm1_cuda, "nms_mask": nms_mask_cuda, "psroi_fwd": pooling.psroi_fwd_cuda,
-            "psroi_bwd": pooling.psroi_bwd_cuda}
+            "psroi_bwd": pooling.psroi_bwd_cuda, "roipool_linear_fwd": pooling.roipool_linear_fwd_cuda,
+            "roipool_linear_bwd": pooling.roipool_linear_bwd_cuda, "roipool_fwd": pooling.roipool_fwd_cuda,
+            "roipool_bwd": pooling.roipool_bwd_cuda}
 
 
 def _launches(corr_fwd, corr_bwd_fm0, corr_bwd_fm1, nms_mask, psroi_fwd, psroi_bwd) -> dict:
+    """the launches of every counted kernel: the tracker's fused ROIPool head
+    runs once a tracker call (three K1 launches: c3, c4, c5) and its
+    backward once a tracker backward (two dFM0 launches: c4, c5); the
+    materialized ROIPool (the oracle head) never on the main paths."""
     return {"corr_fwd": corr_fwd, "corr_bwd_fm0": corr_bwd_fm0, "corr_bwd_fm1": corr_bwd_fm1, "nms_mask": nms_mask,
-            "psroi_fwd": psroi_fwd, "psroi_bwd": psroi_bwd}
+            "psroi_fwd": psroi_fwd, "psroi_bwd": psroi_bwd, "roipool_linear_fwd": corr_fwd // 3,
+            "roipool_linear_bwd": corr_bwd_fm0 // 2, "roipool_fwd": 0, "roipool_bwd": 0}
 
 
 def _zero_counts() -> None:
@@ -2245,6 +2340,219 @@ def psroi_weight_gather_ms(n_t, k, paper, in_channels, gen):
     return gather_ms, device_ms(fold), cuda_time_ms(fold)
 
 
+# ROIPool's tolerance: the kernels sum a bin (forwards) and an element's
+# terms (backwards) in another order than the einsum forms, f32 rounding of
+# sums of tens of terms: 1e-5 of the largest magnitude
+ROIPOOL_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def einsum_roi_pool_linear():
+    """the tracker's fused ROIPool head as its einsum form for the duration
+    (roi_pool_linear as it was before its kernels: ROIPool's bounds, then
+    roi_pool_linear_plain; its backward autograd's through the einsums):
+    the same model and inputs with the parent's arithmetic, so a profile
+    splits the tracker stage before and after in one call."""
+    from detect_to_track_tpu_torch.models import correlation_tracker
+    from detect_to_track_tpu_torch.ops import pooling
+
+    def einsum_form(g, rois, r_hw):
+        bounds = pooling.psroi_bounds(rois, r_hw, g.shape[1], g.shape[2], clamp_corner=True)
+        return pooling.roi_pool_linear_plain(g, bounds)
+
+    kernels = correlation_tracker.roi_pool_linear
+    correlation_tracker.roi_pool_linear = einsum_form
+    try:
+        yield
+    finally:
+        correlation_tracker.roi_pool_linear = kernels
+
+
+def roipool_rois(seed, b, r):
+    """psroi_rois with every 8th roi (from the 6th) larger than the frame
+    (centre in it, sides 1-4 of it), as the random-weight detector's
+    detections are (the slice phase counts them): ROIPool's corner clamp
+    puts up to the whole map into their bin (0, 0)."""
+    import numpy as np
+    import torch
+
+    rois = psroi_rois(seed, b, r)
+    rng = np.random.default_rng(seed + 1)
+    n = rois[:, 5::8].shape[1]
+    big = np.concatenate([rng.uniform(0.0, 1.0, (b, n, 2)), rng.uniform(1.0, 4.0, (b, n, 2))], -1)
+    rois[:, 5::8] = torch.from_numpy(big.astype(np.float32)).cuda()
+    return rois
+
+
+def roipool_bound_ms(bounds, h, w, width, linear):
+    """least times of ROIPool's forward and backward on these bounds (B, R,
+    4, k), `width` values a pixel of a bin (the fused head's O outputs, the
+    materialized pooling's C channels). Forward: each map element that some
+    roi's bin holds read once (the fused head's map holds one a pixel, bin
+    and output; the materialized map one a pixel and channel), the outputs
+    written once, the bounds read once; against an add per pixel of a
+    non-empty bin and value and a division per bin and value (and the fused
+    head's sum of the k^2 bins). Backward: the cotangent read once, the
+    map's gradient written once, the bounds read once; against a division
+    and an add per pixel of a non-empty bin and value (f32). Returns
+    ((ms, bound_by) forward, (ms, bound_by) backward)."""
+    import torch
+
+    b, r, _, k = bounds.shape
+    pixels, rmask, cmask = _psroi_bin_pixels(bounds, h, w)
+    cover = torch.einsum("brih,brjw->bijhw", rmask, cmask) > 0  # (B, k, k, H, W)
+    held = int(cover.sum() if linear else cover.any(2).any(1).sum()) * width
+    outputs = b * r * width * (1 if linear else k * k)
+    maps = b * h * w * width * (k * k if linear else 1)
+    fwd_ops = float(pixels.sum()) * width + b * r * k * k * width * (2 if linear else 1)
+    bwd_ops = 2.0 * float(pixels.sum()) * width
+
+    def bound(nbytes, ops):
+        return max((4 * (nbytes + bounds.numel()) / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / F32_FLOPS * 1e3, "operations"))
+
+    return bound(held + outputs, fwd_ops), bound(outputs + maps, bwd_ops)
+
+
+def phase_roipool(smi: str):
+    """ROIPool's kernels (ops/csrc/roipool.cu) at the main paths' shapes
+    (the 38x75 maps, k 7, proposal-like rois with rois past the border,
+    empty bins and rois larger than the frame (roipool_rois), ROIPool's
+    corner-clamped bounds): the tracker's fused head
+    (g (B, H, W, k, k, 4) f32) at a pair call's BATCH_SIZE pairs and
+    MAX_DETS rois and at a training step's MAX_LABELS rois, and the
+    materialized pooling (the oracle head's 2 x 512 + 3 x 289 = 1891
+    channels, contiguous NHWC maps, its cotangent in the head's (C, k, k)
+    order) at BATCH_SIZE pairs and MAX_DETS rois. Each forward against its
+    plain einsum form and each backward against autograd through it within
+    ROIPOOL_TOL of the largest magnitude, empty bins (the fused head: rois
+    with every bin empty) exactly 0, the backwards bitwise the same on a
+    repeat and through the ops' autograd, roi_pool / roi_pool_linear
+    bitwise the ops. Each kernel and each plain version timed by the card's
+    kernel time a call (torch.profiler) and by CUDA events around
+    back-to-back calls (the host's pace where it is slower), beside the
+    kernel's bound, and the peak MiB a forward and backward take (kernels
+    and plain). Outside the main-path launch count. Returns {kernel: row of
+    the kernels line} and the largest absolute errors."""
+    import torch
+
+    from detect_to_track_tpu_torch.config import load_config
+    from detect_to_track_tpu_torch.models import DetectTrackModule
+    from detect_to_track_tpu_torch.ops import pooling
+
+    cfg = load_config(str(ROOT / "cfg" / "default.yaml"))
+    fh, fw = cfg.fm_shape
+    p, k, n_out = cfg.BATCH_SIZE, cfg.K, 4
+    c = 2 * DetectTrackModule.rpn_channels + 3 * (2 * cfg.D_MAX + 1) ** 2
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    log(f"[roipool] {p} pairs x {fh}x{fw}, k {k}: the fused head's {n_out} outputs at {cfg.max_dets} rois (a pair "
+        f"call) and {cfg.MAX_LABELS} (a training step), the materialized pooling's {c} channels at "
+        f"{cfg.max_dets} rois; card: {smi}")
+    rows, errs = {}, {}
+
+    def checked(what, fwd, plain_fwd, bwd, op, public, x, cot, empty, stride_cot):
+        """forward and backward against the plain form and autograd through it;
+        returns the errors (forward, backward)."""
+        got = fwd()
+        ref = plain_fwd(x)
+        xg = x.detach().requires_grad_()
+        (want,) = torch.autograd.grad(plain_fwd(xg), xg, cot)
+        d1, d2 = bwd(cot), bwd(cot)
+        x2 = x.detach().requires_grad_()
+        out = op(x2)
+        out.backward(cot)
+        torch.cuda.synchronize()
+        f_scale, b_scale = ref.abs().max().item(), want.abs().max().item()
+        f_err, b_err = (got - ref).abs().max().item(), (d1 - want).abs().max().item()
+        zeros = bool(empty.any()) and bool((got[empty] == 0).all())
+        same = torch.equal(d1, d2) and torch.equal(x2.grad, d1) and torch.equal(out, got) and torch.equal(public(), got)
+        log(f"[roipool] {what}: forward err {f_err:.2e} (max|ref| {f_scale:.2e}), backward err {b_err:.2e} (max|ref| "
+            f"{b_scale:.2e}; cotangent {stride_cot}); {int(empty.sum())} empty outputs exactly 0 {zeros}; backward "
+            f"bitwise on a repeat and through the op's autograd, the public function bitwise the op {same}")
+        if not (f_err <= ROIPOOL_TOL * f_scale and b_err <= ROIPOOL_TOL * b_scale and zeros and same):
+            raise AssertionError(f"ROIPool kernels, {what}: forward err {f_err:.3e}, backward err {b_err:.3e}, empty "
+                                 f"outputs 0 {zeros}, repeatable and = the op's {same}")
+        return f_err, b_err
+
+    def timed(what, kernel_fwd, kernel_bwd, plain_fwd, plain_bwd, op_step, plain_step, bounds, width, linear):
+        (fb, fby), (bb, bby) = roipool_bound_ms(bounds, fh, fw, width, linear)
+        t = {name: (device_ms(fn), cuda_time_ms(fn, iters=20 if name.startswith("kernel") else 5))
+             for name, fn in (("kernel forward", kernel_fwd), ("kernel backward", kernel_bwd),
+                              ("plain forward", plain_fwd), ("plain backward", plain_bwd))}
+        mem_kernel, mem_plain = _peak_mib(op_step), _peak_mib(plain_step)
+        log(f"[roipool] {what}: " + ", ".join(f"{name} {dev:.4f} ms (events {ev:.4f})" for name, (dev, ev) in t.items())
+            + f"; bounds forward {fb:.6f} ms ({fby}), backward {bb:.6f} ms ({bby}); forward + backward peak "
+            f"{mem_kernel:.1f} MiB (plain {mem_plain:.1f} MiB)")
+        return (dict(ms=t["kernel forward"][0], plain_ms=t["plain forward"][0], bound_ms=fb, bound_by=fby),
+                dict(ms=t["kernel backward"][0], plain_ms=t["plain backward"][0], bound_ms=bb, bound_by=bby))
+
+    # ---- the fused head: a pair call's rois, then a training step's ----
+    for label, r in (("pair call", cfg.max_dets), ("training step", cfg.MAX_LABELS)):
+        rois = roipool_rois(1, p, r)
+        bounds = pooling.psroi_bounds(rois, k, fh, fw, clamp_corner=True)
+        g = torch.randn(p, fh, fw, k, k, n_out, device="cuda", generator=gen)
+        cot = torch.randn(p, r, n_out, device="cuda", generator=gen)
+        i0, i1, j0, j1 = bounds.unbind(2)
+        empty = ((i1 - i0)[..., :, None] * (j1 - j0)[..., None, :] <= 0).all(-1).all(-1)[..., None].expand(p, r, n_out)
+        f_err, b_err = checked(
+            f"fused head, {label} ({r} rois)", lambda: pooling.roipool_linear_fwd_cuda(g, bounds),
+            lambda x: pooling.roi_pool_linear_plain(x, bounds),
+            lambda y: pooling.roipool_linear_bwd_cuda(y, bounds, fh, fw),
+            lambda x: torch.ops.d2t.roipool_linear_fwd(x, bounds), lambda: pooling.roi_pool_linear(g, rois, k),
+            g, cot, empty, "contiguous")
+        errs["roipool_linear_fwd"] = max(errs.get("roipool_linear_fwd", 0.0), f_err)
+        errs["roipool_linear_bwd"] = max(errs.get("roipool_linear_bwd", 0.0), b_err)
+
+        def step(pool):
+            y = g.detach().requires_grad_()
+            pool(y).backward(cot)
+
+        fwd_row, bwd_row = timed(
+            f"fused head, {label} ({r} rois)", lambda: pooling.roipool_linear_fwd_cuda(g, bounds),
+            lambda: pooling.roipool_linear_bwd_cuda(cot, bounds, fh, fw),
+            lambda: pooling.roi_pool_linear_plain(g, bounds),
+            lambda: pooling.roipool_linear_bwd_ref(cot, bounds, fh, fw),
+            lambda: step(lambda y: torch.ops.d2t.roipool_linear_fwd(y, bounds)),
+            lambda: step(lambda y: pooling.roi_pool_linear_plain(y, bounds)), bounds, n_out, True)
+        # the kernels line: the forward at a pair call (serving, clips), the
+        # backward at a training step (the only path that runs it)
+        if label == "pair call":
+            rows["roipool_linear_fwd"] = fwd_row
+        else:
+            rows["roipool_linear_bwd"] = bwd_row
+        del g, cot
+
+    # ---- the materialized pooling, the oracle head's features ----
+    r = cfg.max_dets
+    rois = roipool_rois(2, p, r)
+    bounds = pooling.psroi_bounds(rois, k, fh, fw, clamp_corner=True)
+    fm = torch.randn(p, fh, fw, c, device="cuda", generator=gen)
+    # the head's cotangent: a (C, k, k)-ordered gradient viewed as (k, k, C)
+    cot = torch.randn(p, r, c, k, k, device="cuda", generator=gen).permute(0, 1, 3, 4, 2)
+    i0, i1, j0, j1 = bounds.unbind(2)
+    empty = ((i1 - i0)[..., :, None] * (j1 - j0)[..., None, :] <= 0)[..., None].expand(p, r, k, k, c)
+    f_err, b_err = checked(
+        f"materialized pooling ({c} channels, {r} rois)", lambda: pooling.roipool_fwd_cuda(fm, bounds),
+        lambda x: pooling.roi_pool_plain(x, bounds), lambda y: pooling.roipool_bwd_cuda(y, bounds, fh, fw),
+        lambda x: torch.ops.d2t.roipool_fwd(x, bounds), lambda: pooling.roi_pool(fm, rois, k), fm, cot, empty,
+        "the head's (C, k, k) order")
+    errs["roipool_fwd"], errs["roipool_bwd"] = f_err, b_err
+
+    def mat_step(pool):
+        y = fm.detach().requires_grad_()
+        pool(y).backward(cot)
+
+    fwd_row, bwd_row = timed(
+        f"materialized pooling ({c} channels, {r} rois)", lambda: pooling.roipool_fwd_cuda(fm, bounds),
+        lambda: pooling.roipool_bwd_cuda(cot, bounds, fh, fw), lambda: pooling.roi_pool_plain(fm, bounds),
+        lambda: pooling.roipool_bwd_ref(cot, bounds, fh, fw),
+        lambda: mat_step(lambda y: torch.ops.d2t.roipool_fwd(y, bounds)),
+        lambda: mat_step(lambda y: pooling.roi_pool_plain(y, bounds)), bounds, c, False)
+    rows["roipool_fwd"], rows["roipool_bwd"] = fwd_row, bwd_row
+    del fm, cot
+    torch.cuda.empty_cache()
+    return rows, errs
+
+
 def device_ms(fn, iters: int = 10) -> float:
     """the card's kernel time a call of fn, by torch.profiler (the sum of its
     kernels' device times over iters warm calls), whatever the host's pace."""
@@ -2282,7 +2590,8 @@ def phase_profile(label, fn, top: int = 15):
     cuda = torch.autograd.DeviceType.CUDA
     kernels = [e for e in events if e.device_type == cuda and not getattr(e, "is_user_annotation", False)]
     ops = ("d2t::corr_fwd", "d2t::corr_bwd_fm0", "d2t::corr_bwd_fm1", "d2t::nms_mask", "d2t::psroi_fwd",
-           "d2t::psroi_bwd")  # nested in stages
+           "d2t::psroi_bwd", "d2t::roipool_linear_fwd", "d2t::roipool_linear_bwd", "d2t::roipool_fwd",
+           "d2t::roipool_bwd")  # nested in stages (the tracker's `d2t::roi_pool_linear` range prints as a stage)
     stages = [e for e in events if e.device_type != cuda and e.key.startswith("d2t::") and e.key not in ops]
     dev_us = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     busy = sum(dev_us(e) for e in kernels)
@@ -2310,7 +2619,7 @@ def phase_profile(label, fn, top: int = 15):
     ranked = sorted(kernels, key=dev_us, reverse=True)
     # the top kernels, then the port's own kernels wherever they rank
     for rank, e in enumerate(ranked):
-        if rank < top or any(name in e.key for name in ("corr_", "viterbi", "nms_", "psroi_")):
+        if rank < top or any(name in e.key for name in ("corr_", "viterbi", "nms_", "psroi_", "roipool_")):
             log(f"[profile]   {dev_us(e) / 1e3:8.3f} ms {100 * dev_us(e) / max(busy, 1e-9):5.1f}%  x{e.count:<4d} "
                 f"#{rank + 1:<3d} {e.key[:90]}")
 
@@ -2574,6 +2883,20 @@ def main_psroi() -> int:
     return 0
 
 
+def main_roipool() -> int:
+    """`python3 chip_smoke.py --roipool`: the device and build phases, then
+    ROIPool's kernels alone at the main paths' shapes, held against their
+    plain versions and timed without the model. A quick check of a ROIPool
+    change; the full run (no arguments) is the smoke test."""
+    t_start = time.perf_counter()
+    sys.path.insert(0, str(ROOT))
+    smi = phase_device()
+    phase_build()
+    phase_roipool(smi)
+    log(f"[done] roipool phases passed in {time.perf_counter() - t_start:.1f} s")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2586,6 +2909,7 @@ def main() -> int:
     rows = phase_kernels(pairs=4)
     bwd_rows = phase_bwd_kernels(pairs=4)
     psroi_rows, psroi_errs = phase_psroi(smi)
+    roipool_rows, roipool_errs = phase_roipool(smi)
     slice_launches, det = phase_slice(smi)
     nms_row = phase_nms(smi, det)
     export_launches = phase_export(smi, det)
@@ -2680,6 +3004,23 @@ def main() -> int:
             "bound_by": psroi_rows[name][0]["bound_by"],
             "library_ms": None,
         })
+    # every path counts the fused ROIPool head's launches: a forward a
+    # batched call, served call, clip chunk, training step, validation batch
+    # and report pair; a backward a training step
+    for name, what in (("roipool_linear_fwd", "the tracker's fused head"),
+                       ("roipool_linear_bwd", "its backward: XLA's transposed mask matmuls")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "detect_to_track_tpu_torch/ops/csrc/roipool.cu",
+            "replaces": f"detect_to_track_tpu/ops/pooling.py:118 (roi_pool_linear, {what}; an XLA program of mask "
+                        "matmuls, not a Pallas kernel)",
+            "launches": sum(x[name] for x in (slice_launches, export_launches, clip_launches, train_launches,
+                                              trainer_launches, extra)),
+            "max_abs_err": roipool_errs[name],
+            **{key: roipool_rows[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+        })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -2697,4 +3038,6 @@ if __name__ == "__main__":
         sys.exit(main_nms())
     if sys.argv[1:2] == ["--psroi"]:
         sys.exit(main_psroi())
+    if sys.argv[1:2] == ["--roipool"]:
+        sys.exit(main_roipool())
     sys.exit(main())

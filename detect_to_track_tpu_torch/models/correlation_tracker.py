@@ -11,8 +11,9 @@ package's `models/correlation_tracker.py`).
 
 fused_head=True (default) reorders that head: the Linear contracts into
 each channel group first, G[h,w,i,j,o] += FM_g[h,w,c] . W_g[c,i,j,o], and
-ops.roi_pool_linear pools the small G. The correlation volumes enter in the
-kernel's own (K2, H, W) layout. fused_head=False is the materialized path,
+ops.roi_pool_linear pools the small G (the ROIPool kernels on the card,
+inside a `d2t::roi_pool_linear` profiler range). The correlation volumes
+enter in the kernel's own (K2, H, W) layout. fused_head=False is the materialized path,
 kept as the oracle. With a bf16 compute dtype the products round their
 inputs to bf16 and sum in f32, as the JAX package's
 preferred_element_type=float32 does.
@@ -24,6 +25,7 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..ops.correlation import pointwise_correlation
 from ..ops.pooling import roi_pool, roi_pool_linear
@@ -145,4 +147,6 @@ class CorrelationTracker(nn.Module):
         g = g + proj_corr(fm_pyr_0["c4"], fm_pyr_1["c4"], 2 * cr + k2)
         g = g + proj_corr(fm_pyr_0["c5"], fm_pyr_1["c5"], 2 * cr + 2 * k2)
         # g: (B, H, W, k, k, 4) f32, the fc-projected pyramid
-        return roi_pool_linear(g, rois, khw) + bias.float()
+        with record_function("d2t::roi_pool_linear"):
+            pooled = roi_pool_linear(g, rois, khw)
+        return pooled + bias.float()

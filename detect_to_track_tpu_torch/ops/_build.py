@@ -2,9 +2,9 @@
 
 Each source under `csrc/` becomes one shared library with a plain C
 interface, compiled for Hopper (`sm_90a`) into `build/torch_kernels/` at the
-repository root. The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded. `build()` starts one nvcc per source, all at once.
+repository root. The library's file name carries a hash of the source, the
+headers under `csrc/` and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. `build()` starts one nvcc per source, all at once.
 
 Nothing here runs at import: the CPU tests import every module of the port
 on machines that have neither nvcc nor a GPU.
@@ -27,7 +27,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {
     "corr_fwd": "corr_fwd.cu", "corr_bwd": "corr_bwd.cu", "viterbi": "viterbi.cu", "nms": "nms.cu",
-    "psroi": "psroi.cu",
+    "psroi": "psroi.cu", "roipool": "roipool.cu",
 }
 
 NVCC_FLAGS = (
@@ -55,6 +55,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / SOURCES[name]
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the sources' shared device code
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -1,5 +1,5 @@
 """ROI pooling (port of the JAX package's `ops/pooling.py`), in two forms,
-and PSROIPool's hand-written Hopper kernels.
+and ROIPool's and PSROIPool's hand-written Hopper kernels.
 
 A bin average is a separable mask contraction
 
@@ -27,6 +27,16 @@ strides; other dtypes raise); on CPU tensors they run their plain versions.
 The ops take the bins' integer bounds, computed by torch_ref._bin_bounds on
 the maps' device, so the kernels' geometry is bitwise the plain version's;
 each op has a fake, so `torch.export` traces them.
+
+ROIPool's einsum forms are the plain versions of `csrc/roipool.cu`, likewise
+registered ops with autograd formulas: the tracker's fused pool-fc head
+`roi_pool_linear` is `d2t::roipool_linear_fwd` / `d2t::roipool_linear_bwd`
+(its map g (B, H, W, k, k, O) is bin-major with T = O: the forward sums
+each roi's bin averages in the kernel, the roi's pixels split evenly over
+the block; the backward is PSROIPool's with the cotangent broadcast over
+the bins), and the materialized `roi_pool` is `d2t::roipool_fwd` /
+`d2t::roipool_bwd` (every bin reads the same C channels). Their bounds
+carry ROIPool's corner clamp.
 """
 
 from __future__ import annotations
@@ -68,12 +78,6 @@ def _batched(fm: torch.Tensor, rois: torch.Tensor, frame_ndim: int):
     return fm, rois, False
 
 
-def _masks(rois: torch.Tensor, r_hw: int, fm_h: int, fm_w: int, clamp_corner: bool, dtype):
-    """rois (B, R, 4) -> rmask (B, R, k, H), cmask (B, R, k, W), numel
-    (B, R, k, k)."""
-    return _bounds_masks(psroi_bounds(rois, r_hw, fm_h, fm_w, clamp_corner), fm_h, fm_w, dtype)
-
-
 def _average(sums: torch.Tensor, numel: torch.Tensor) -> torch.Tensor:
     return torch.where(numel > 0, sums / numel.clamp(min=1.0), torch.zeros_like(sums))
 
@@ -82,21 +86,46 @@ def roi_pool(fm: torch.Tensor, rois: torch.Tensor, r_hw: int, impl: str = "einsu
     """average ROI pooling (reference roipool_cuda.cu:6-63).
 
     fm: ([B,] H, W, C); rois: ([B,] R, 4) fractional ijhw (padding rows are
-    fine: a roi with empty bins pools to zeros). Returns ([B,] R, k, k, C).
+    fine: a roi with empty bins pools to zeros). Returns ([B,] R, k, k, C)
+    in fm's float type. impl="einsum": the op `d2t::roipool_fwd` (its
+    backward `d2t::roipool_bwd`) on the maps in their float type: the
+    kernels for CUDA tensors (float32; bf16 and f16 maps are cast first,
+    float64 ones raise), the plain einsum form for CPU tensors;
+    impl="sat": the summed-area form on any device.
     """
     _check_impl(impl)
     fm, rois, squeeze = _batched(fm, rois, 3)
     if impl == "sat":
         out = _roi_pool_sat(fm, rois, r_hw)
         return out[0] if squeeze else out
+    bounds = psroi_bounds(rois, r_hw, fm.shape[1], fm.shape[2], clamp_corner=True)
+    out = roipool_fwd(fm.to(_float_type(fm.dtype)), bounds)
+    return out[0] if squeeze else out
+
+
+def roi_pool_plain(fm: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """the plain version of roipool_fwd_cuda (the einsum form,
+    differentiable): fm (B, H, W, C), bounds (B, R, 4, k) (psroi_bounds with
+    the corner clamp) -> (B, R, k, k, C) in fm's float type."""
     _, fm_h, fm_w, _ = fm.shape
     f = fm.to(_float_type(fm.dtype))
-    rmask, cmask, numel = _masks(rois, r_hw, fm_h, fm_w, True, f.dtype)
+    rmask, cmask, numel = _bounds_masks(bounds, fm_h, fm_w, f.dtype)
     # contract the wider W first: the intermediate is (B, R, k, H, C)
     p1 = torch.einsum("brjw,bhwc->brjhc", cmask, f)
     sums = torch.einsum("brih,brjhc->brijc", rmask, p1)
-    out = _average(sums, numel[..., None])
-    return out[0] if squeeze else out
+    return _average(sums, numel[..., None])
+
+
+def roipool_bwd_ref(g: torch.Tensor, bounds: torch.Tensor, fm_h: int, fm_w: int) -> torch.Tensor:
+    """the plain version of roipool_bwd_cuda: the adjoint of roi_pool_plain
+    written out (the average's division, the two einsums transposed), g (B,
+    R, k, k, C) -> dfm (B, H, W, C), contiguous, in g's float type."""
+    gf = g.to(_float_type(g.dtype))
+    rmask, cmask, numel = _bounds_masks(bounds, fm_h, fm_w, gf.dtype)
+    numel = numel[..., None]
+    dsums = torch.where(numel > 0, gf, torch.zeros_like(gf)) / numel.clamp(min=1.0)
+    dp1 = torch.einsum("brih,brijc->brjhc", rmask, dsums)
+    return torch.einsum("brjw,brjhc->bhwc", cmask, dp1).contiguous()
 
 
 def _roi_pool_sat(fm: torch.Tensor, rois: torch.Tensor, r_hw: int) -> torch.Tensor:
@@ -118,18 +147,41 @@ def roi_pool_linear(g: torch.Tensor, rois: torch.Tensor, r_hw: int) -> torch.Ten
     `g[h, w, i, j, o] = sum_c fm[h, w, c] * W[c*k*k + i*k + j, o]`.
 
     Both the bin average and the linear head are linear, so the wide
-    channel axis contracts before pooling (the tracker's fused head).
+    channel axis contracts before pooling (the tracker's fused head). The op
+    `d2t::roipool_linear_fwd` (its backward `d2t::roipool_linear_bwd`) on g
+    in its float type: the kernels for CUDA tensors (float32; bf16 and f16
+    maps are cast first, float64 ones raise), the plain einsum form for CPU
+    tensors.
 
     g: ([B,] H, W, k, k, O); rois: ([B,] R, 4). Returns ([B,] R, O).
     """
     g, rois, squeeze = _batched(g, rois, 5)
+    bounds = psroi_bounds(rois, r_hw, g.shape[1], g.shape[2], clamp_corner=True)
+    out = roipool_linear_fwd(g.to(_float_type(g.dtype)), bounds)
+    return out[0] if squeeze else out
+
+
+def roi_pool_linear_plain(g: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """the plain version of roipool_linear_fwd_cuda (the einsum form,
+    differentiable): g (B, H, W, k, k, O), bounds (B, R, 4, k) (psroi_bounds
+    with the corner clamp) -> (B, R, O) in g's float type."""
     fm_h, fm_w = g.shape[1:3]
     gf = g.to(_float_type(g.dtype))
-    rmask, cmask, numel = _masks(rois, r_hw, fm_h, fm_w, True, gf.dtype)
+    rmask, cmask, numel = _bounds_masks(bounds, fm_h, fm_w, gf.dtype)
     t1 = torch.einsum("brjw,bhwijo->brhijo", cmask, gf)
     t2 = torch.einsum("brih,brhijo->brijo", rmask, t1)
-    out = _average(t2, numel[..., None]).sum(dim=(2, 3))
-    return out[0] if squeeze else out
+    return _average(t2, numel[..., None]).sum(dim=(2, 3))
+
+
+def roipool_linear_bwd_ref(g: torch.Tensor, bounds: torch.Tensor, fm_h: int, fm_w: int) -> torch.Tensor:
+    """the plain version of roipool_linear_bwd_cuda: the adjoint of
+    roi_pool_linear_plain, PSROIPool's (psroi_bwd_ref) with g broadcast
+    over the bins: g (B, R, O) -> dg (B, H, W, k, k, O), contiguous, in g's
+    float type."""
+    b, r, o = g.shape
+    k = bounds.shape[-1]
+    dg = psroi_bwd_ref(g[..., None, None].expand(b, r, o, k, k), bounds, o, fm_h, fm_w)
+    return dg.reshape(b, fm_h, fm_w, k, k, o)
 
 
 def ps_roi_pool(
@@ -424,6 +476,215 @@ def _psroi_backward(ctx, grad):
 
 
 psroi_fwd.register_autograd(_psroi_backward, setup_context=_psroi_setup_context)
+
+
+def _roipool_lib() -> ctypes.CDLL:
+    lib = _build.load("roipool")
+    i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
+    lib.d2t_roipool_linear_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [i64] * 4 + [ptr]
+    lib.d2t_roipool_linear_bwd.argtypes = [ptr] + [i64] * 3 + [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.d2t_roipool_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [i64] * 4 + [ptr]
+    lib.d2t_roipool_bwd.argtypes = [ptr] + [i64] * 5 + [ptr] * 4 + [i32] * 6 + [ptr]
+    for fn in (lib.d2t_roipool_linear_fwd, lib.d2t_roipool_linear_bwd, lib.d2t_roipool_fwd, lib.d2t_roipool_bwd):
+        fn.restype = i32
+    return lib
+
+
+def _check_f32_cuda(x: torch.Tensor, ndim: int, what: str) -> None:
+    if not x.is_cuda or x.dtype != torch.float32 or x.dim() != ndim:
+        raise ValueError(f"the ROIPool kernel takes {what} as a {ndim}-d float32 CUDA tensor, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def _launched(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"ROIPool {what} kernel launch failed: CUDA error {err}")
+
+
+def roipool_linear_fwd_cuda(g: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """launch the fused head's forward kernel: g (B, H, W, k, k, O) float32
+    CUDA map (its (k, k, O) axes flattened to one strided axis: a view for
+    the tracker's contiguous map, else a copy), bounds (B, R, 4, k) int32
+    -> (B, R, O) float32. Counts each launch in
+    `roipool_linear_fwd_cuda.launches`."""
+    _check_f32_cuda(g, 6, "the projected map g (B, H, W, k, k, O)")
+    b, h, w, k, _, o = g.shape
+    if _check_bounds(bounds, g.device, b) != k or g.shape[4] != k:
+        raise ValueError(f"map {tuple(g.shape)} does not match bounds {tuple(bounds.shape)}")
+    gv = g.reshape(b, h, w, k * k * o)
+    r = bounds.shape[1]
+    out = torch.empty((b, r, o), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        _launched(_roipool_lib().d2t_roipool_linear_fwd(gv.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, r, o, k,
+                                                        h, w, *gv.stride(), stream), "fused forward")
+    roipool_linear_fwd_cuda.launches += 1
+    return out
+
+
+roipool_linear_fwd_cuda.launches = 0
+
+
+def roipool_linear_bwd_cuda(g: torch.Tensor, bounds: torch.Tensor, fm_h: int, fm_w: int) -> torch.Tensor:
+    """launch the fused head's backward (PSROIPool's prologue and
+    pixel-major kernel, the cotangent broadcast over the bins): g (B, R, O)
+    float32 CUDA cotangent of any strides, bounds (B, R, 4, k) int32 -> dg
+    (B, H, W, k, k, O) contiguous, every element written; bitwise the same
+    on a repeat. Counts each call in `roipool_linear_bwd_cuda.launches`."""
+    _check_f32_cuda(g, 3, "the cotangent (B, R, O)")
+    b, r, o = g.shape
+    k = _check_bounds(bounds, g.device, b)
+    if bounds.shape[1] != r:
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match bounds {tuple(bounds.shape)}")
+    dg = torch.empty((b, fm_h, fm_w, k, k, o), dtype=torch.float32, device=g.device)
+    scaled = torch.empty((b, r, k, k, o), dtype=torch.float32, device=g.device)  # g / n, bin-major
+    masks = torch.empty(b * (fm_h + fm_w) * r, dtype=torch.int32, device=g.device)  # the bins holding a row, a column
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        _launched(_roipool_lib().d2t_roipool_linear_bwd(g.data_ptr(), *g.stride(), bounds.data_ptr(), scaled.data_ptr(),
+                                                        masks.data_ptr(), dg.data_ptr(), b, r, o, k, fm_h, fm_w,
+                                                        stream), "fused backward")
+    roipool_linear_bwd_cuda.launches += 1
+    return dg
+
+
+roipool_linear_bwd_cuda.launches = 0
+
+
+def roipool_fwd_cuda(fm: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """launch the materialized forward kernel: fm (B, H, W, C) float32 CUDA
+    maps of any strides, bounds (B, R, 4, k) int32 -> (B, R, k, k, C)
+    float32. Counts each launch in `roipool_fwd_cuda.launches`."""
+    _check_f32_cuda(fm, 4, "the maps (B, H, W, C)")
+    b, h, w, c = fm.shape
+    k = _check_bounds(bounds, fm.device, b)
+    r = bounds.shape[1]
+    out = torch.empty((b, r, k, k, c), dtype=torch.float32, device=fm.device)
+    with torch.cuda.device(fm.device):
+        stream = torch.cuda.current_stream(fm.device).cuda_stream
+        _launched(_roipool_lib().d2t_roipool_fwd(fm.data_ptr(), bounds.data_ptr(), out.data_ptr(), b, r, c, k, h, w,
+                                                 *fm.stride(), stream), "forward")
+    roipool_fwd_cuda.launches += 1
+    return out
+
+
+roipool_fwd_cuda.launches = 0
+
+
+def roipool_bwd_cuda(g: torch.Tensor, bounds: torch.Tensor, fm_h: int, fm_w: int) -> torch.Tensor:
+    """launch the materialized backward (its prologue, then the pixel-major
+    kernel): g (B, R, k, k, C) float32 CUDA cotangent of any strides,
+    bounds (B, R, 4, k) int32 -> dfm (B, H, W, C) contiguous, every element
+    written; bitwise the same on a repeat. Counts each call in
+    `roipool_bwd_cuda.launches`."""
+    _check_f32_cuda(g, 5, "the cotangent (B, R, k, k, C)")
+    b, r, k, _, c = g.shape
+    if _check_bounds(bounds, g.device, b) != k or g.shape[:4] != (b, bounds.shape[1], k, k):
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match bounds {tuple(bounds.shape)}")
+    dfm = torch.empty((b, fm_h, fm_w, c), dtype=torch.float32, device=g.device)
+    numel = torch.empty(b * r * k * k, dtype=torch.int32, device=g.device)  # each bin's n
+    masks = torch.empty(b * (fm_h + fm_w) * r, dtype=torch.int32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        _launched(_roipool_lib().d2t_roipool_bwd(g.data_ptr(), *g.stride(), bounds.data_ptr(), numel.data_ptr(),
+                                                 masks.data_ptr(), dfm.data_ptr(), b, r, c, k, fm_h, fm_w, stream),
+                  "backward")
+    roipool_bwd_cuda.launches += 1
+    return dfm
+
+
+roipool_bwd_cuda.launches = 0
+
+
+@torch.library.custom_op("d2t::roipool_linear_fwd", mutates_args=(), device_types="cpu")
+def roipool_linear_fwd(g: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """the tracker's fused ROIPool head, the op `d2t::roipool_linear_fwd`: g
+    (B, H, W, k, k, O), bounds (B, R, 4, k) int32 (psroi_bounds with the
+    corner clamp) -> (B, R, O). The kernel for CUDA tensors
+    (roipool_linear_fwd_cuda), the plain einsum form for CPU tensors; its
+    backward is `d2t::roipool_linear_bwd`."""
+    return roi_pool_linear_plain(g, bounds).contiguous()
+
+
+roipool_linear_fwd.register_kernel("cuda")(roipool_linear_fwd_cuda)
+
+
+@roipool_linear_fwd.register_fake
+def _roipool_linear_fwd_fake(g: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    return g.new_empty((bounds.shape[0], bounds.shape[1], g.shape[-1]), dtype=_float_type(g.dtype))
+
+
+@torch.library.custom_op("d2t::roipool_linear_bwd", mutates_args=(), device_types="cpu")
+def roipool_linear_bwd(g: torch.Tensor, bounds: torch.Tensor, fm_h: int, fm_w: int) -> torch.Tensor:
+    """the fused head's backward, the op `d2t::roipool_linear_bwd`: the
+    cotangent g (B, R, O) -> dg (B, H, W, k, k, O) contiguous. The kernels
+    for CUDA tensors (roipool_linear_bwd_cuda), roipool_linear_bwd_ref for
+    CPU tensors."""
+    return roipool_linear_bwd_ref(g, bounds, fm_h, fm_w)
+
+
+roipool_linear_bwd.register_kernel("cuda")(roipool_linear_bwd_cuda)
+
+
+@roipool_linear_bwd.register_fake
+def _roipool_linear_bwd_fake(g: torch.Tensor, bounds: torch.Tensor, fm_h: int, fm_w: int) -> torch.Tensor:
+    k = bounds.shape[-1]
+    return g.new_empty((g.shape[0], fm_h, fm_w, k, k, g.shape[-1]), dtype=_float_type(g.dtype))
+
+
+@torch.library.custom_op("d2t::roipool_fwd", mutates_args=(), device_types="cpu")
+def roipool_fwd(fm: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """ROIPool's forward, the op `d2t::roipool_fwd`: fm (B, H, W, C), bounds
+    (B, R, 4, k) int32 (psroi_bounds with the corner clamp) -> (B, R, k, k,
+    C). The kernel for CUDA tensors (roipool_fwd_cuda), the plain einsum
+    form for CPU tensors; its backward is `d2t::roipool_bwd`."""
+    return roi_pool_plain(fm, bounds).contiguous()
+
+
+roipool_fwd.register_kernel("cuda")(roipool_fwd_cuda)
+
+
+@roipool_fwd.register_fake
+def _roipool_fwd_fake(fm: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    b, r, _, k = bounds.shape
+    return fm.new_empty((b, r, k, k, fm.shape[-1]), dtype=_float_type(fm.dtype))
+
+
+@torch.library.custom_op("d2t::roipool_bwd", mutates_args=(), device_types="cpu")
+def roipool_bwd(g: torch.Tensor, bounds: torch.Tensor, fm_h: int, fm_w: int) -> torch.Tensor:
+    """ROIPool's backward, the op `d2t::roipool_bwd`: the cotangent g (B, R,
+    k, k, C) -> dfm (B, H, W, C) contiguous, whatever the maps' strides. The
+    kernels for CUDA tensors (roipool_bwd_cuda), roipool_bwd_ref for CPU
+    tensors."""
+    return roipool_bwd_ref(g, bounds, fm_h, fm_w)
+
+
+roipool_bwd.register_kernel("cuda")(roipool_bwd_cuda)
+
+
+@roipool_bwd.register_fake
+def _roipool_bwd_fake(g: torch.Tensor, bounds: torch.Tensor, fm_h: int, fm_w: int) -> torch.Tensor:
+    return g.new_empty((g.shape[0], fm_h, fm_w, g.shape[-1]), dtype=_float_type(g.dtype))
+
+
+def _roipool_setup_context(ctx, inputs, output) -> None:
+    fm, bounds = inputs
+    ctx.save_for_backward(bounds)  # not the map: the backwards do not read it
+    ctx.fm_hw = fm.shape[1], fm.shape[2]
+
+
+def _roipool_linear_backward(ctx, grad):
+    (bounds,) = ctx.saved_tensors
+    return roipool_linear_bwd(grad, bounds, *ctx.fm_hw), None
+
+
+def _roipool_backward(ctx, grad):
+    (bounds,) = ctx.saved_tensors
+    return roipool_bwd(grad, bounds, *ctx.fm_hw), None
+
+
+roipool_linear_fwd.register_autograd(_roipool_linear_backward, setup_context=_roipool_setup_context)
+roipool_fwd.register_autograd(_roipool_backward, setup_context=_roipool_setup_context)
 
 
 def _ps_roi_pool_sat(fm, rois, n_targets: int, r_hw: int, paper_layout: bool) -> torch.Tensor:

@@ -404,9 +404,10 @@ def test_correlation_ops_opcheck(cuda):
 
 def test_export_on_card_holds_the_kernels(cuda, tmp_path):
     """a tiny detector (ResNet-50 at 64x96, bf16) exported on the card: its
-    graph calls d2t::corr_fwd (3 times), d2t::nms_mask and d2t::psroi_fwd
-    (twice), the served call
-    launches the kernels and its outputs equal the live call's."""
+    graph calls d2t::corr_fwd (3 times), d2t::nms_mask, d2t::psroi_fwd
+    (twice) and d2t::roipool_linear_fwd (the tracker's fused head), the
+    served call launches the kernels and its outputs equal the live
+    call's."""
     from detect_to_track_tpu_torch.config import Config
     from detect_to_track_tpu_torch.export import export_detector, load_detector
     from detect_to_track_tpu_torch.inference import Detector
@@ -420,13 +421,14 @@ def test_export_on_card_holds_the_kernels(cuda, tmp_path):
     code = torch.export.load(str(path)).graph_module.code
     assert code.count("torch.ops.d2t.corr_fwd.default") == 3 and code.count("torch.ops.d2t.nms_mask.default") == 1
     assert code.count("torch.ops.d2t.psroi_fwd.default") == 2
+    assert code.count("torch.ops.d2t.roipool_linear_fwd.default") == 1
     serve = load_detector(str(path), device=cuda)
     pairs = np.random.default_rng(0).integers(0, 256, (2, 2, 64, 96, 3), dtype=np.uint8)
-    counters = (correlation.corr_fwd_cuda, nms.nms_mask_cuda, pooling.psroi_fwd_cuda)
+    counters = (correlation.corr_fwd_cuda, nms.nms_mask_cuda, pooling.psroi_fwd_cuda, pooling.roipool_linear_fwd_cuda)
     counts = [fn.launches for fn in counters]
     got = serve(pairs)
     torch.cuda.synchronize()
-    assert tuple(fn.launches - c for fn, c in zip(counters, counts)) == (3, 1, 2)
+    assert tuple(fn.launches - c for fn, c in zip(counters, counts)) == (3, 1, 2, 1)
     for g, r in zip(got, det.detect_pairs(pairs)):
         assert torch.equal(g, r)
 
@@ -560,3 +562,154 @@ def test_rfcn_weight_gradient_is_deterministic(cuda):
     assert all(torch.equal(grads[0][n], grads[1][n]) and grads[0][n].isfinite().all() for n in grads[0])
     assert all(grads[0][f"{conv}.{p}"].abs().max() > 0 for conv in ("cls_sm_conv", "reg_sm_conv")
                for p in ("weight", "bias"))
+
+
+# ---------------------------------------------------------------- ROIPool
+
+
+def _roipool_problem(seed, b, r, h, w, k, device):
+    """proposal-like rois with rois past the border and empty bins (as
+    _psroi_problem's) and their corner-clamped ROIPool bounds."""
+    _, rois = _psroi_problem(seed, b, r, 1, 1, 1, False, device)
+    return rois, pooling.psroi_bounds(rois, k, h, w, clamp_corner=True)
+
+
+@pytest.mark.parametrize("r", [128, 32], ids=["pair_call", "training_step"])
+def test_roipool_linear_kernels_match_plain(cuda, r):
+    """d2t::roipool_linear_fwd on the tracker's projected map (4 pairs, 38x75,
+    k 7, 4 outputs) launches the fused forward kernel, and its autograd the
+    backward; the forward within 1e-5 of the largest magnitude of the plain
+    einsum form (another summation order), rois whose every bin is empty
+    exactly 0; the gradient within 1e-5 of autograd through the plain form,
+    bitwise the same on a repeat and for an expanded cotangent's
+    contiguous copy; roi_pool_linear gives the same forward."""
+    k, fh, fw = 7, 38, 75
+    rois, bounds = _roipool_problem(r, 4, r, fh, fw, k, cuda)
+    g = torch.randn(4, fh, fw, k, k, 4, device=cuda)
+    cot = torch.randn(4, r, 4, device=cuda)
+    grads, counts = [], (pooling.roipool_linear_fwd_cuda.launches, pooling.roipool_linear_bwd_cuda.launches)
+    for _ in range(2):
+        x = g.detach().requires_grad_()
+        out = torch.ops.d2t.roipool_linear_fwd(x, bounds)
+        out.backward(cot)
+        grads.append(x.grad)
+    torch.cuda.synchronize()
+    assert (pooling.roipool_linear_fwd_cuda.launches - counts[0],
+            pooling.roipool_linear_bwd_cuda.launches - counts[1]) == (2, 2)
+    x = g.detach().requires_grad_()
+    ref = pooling.roi_pool_linear_plain(x, bounds)
+    (want,) = torch.autograd.grad(ref, x, cot)
+    torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-5 * ref.abs().max().item())
+    i0, i1, j0, j1 = bounds.unbind(2)
+    empty = ((i1 - i0)[..., :, None] * (j1 - j0)[..., None, :] <= 0).all(-1).all(-1)
+    assert empty.any() and (out.detach()[empty] == 0).all()
+    assert grads[0].is_contiguous() and torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], want, rtol=0.0, atol=1e-5 * want.abs().max().item())
+    mean_cot = torch.randn(4, 1, 4, device=cuda).expand(4, r, 4)
+    assert torch.equal(pooling.roipool_linear_bwd_cuda(mean_cot, bounds, fh, fw),
+                       pooling.roipool_linear_bwd_cuda(mean_cot.contiguous(), bounds, fh, fw))
+    assert torch.equal(pooling.roi_pool_linear(g, rois, k), out)
+
+
+@pytest.mark.parametrize("nchw", [False, True], ids=["nhwc", "nchw"])
+def test_roipool_kernels_match_plain(cuda, nchw):
+    """d2t::roipool_fwd on the tracker's materialized features (2 pairs,
+    38x75, 1891 channels, k 7, 64 rois; contiguous NHWC or a view of NCHW
+    storage) launches the forward kernel, and its autograd the backward on
+    the head's (C, k, k)-ordered cotangent; within 1e-5 of the largest
+    magnitude of the plain einsum form and of autograd through it, empty
+    bins exactly 0, the gradient bitwise the same on a repeat; roi_pool
+    gives the same forward."""
+    k, fh, fw, c, r = 7, 38, 75, 1891, 64
+    rois, bounds = _roipool_problem(c, 2, r, fh, fw, k, cuda)
+    base = torch.randn((2, c, fh, fw) if nchw else (2, fh, fw, c), device=cuda)
+    view = (lambda x: x.permute(0, 2, 3, 1)) if nchw else (lambda x: x)
+    cot = torch.randn(2, r, c, k, k, device=cuda).permute(0, 1, 3, 4, 2)
+    grads, counts = [], (pooling.roipool_fwd_cuda.launches, pooling.roipool_bwd_cuda.launches)
+    for _ in range(2):
+        x = base.detach().requires_grad_()
+        out = torch.ops.d2t.roipool_fwd(view(x), bounds)
+        out.backward(cot)
+        grads.append(view(x.grad))
+    torch.cuda.synchronize()
+    assert (pooling.roipool_fwd_cuda.launches - counts[0], pooling.roipool_bwd_cuda.launches - counts[1]) == (2, 2)
+    x = base.detach().requires_grad_()
+    ref = pooling.roi_pool_plain(view(x), bounds)
+    (want,) = torch.autograd.grad(ref, x, cot)
+    torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-5 * ref.abs().max().item())
+    i0, i1, j0, j1 = bounds.unbind(2)
+    empty = (i1 - i0)[..., :, None] * (j1 - j0)[..., None, :] <= 0
+    assert empty.any() and (out.detach()[empty] == 0).all()
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], view(want), rtol=0.0, atol=1e-5 * want.abs().max().item())
+    assert torch.equal(pooling.roi_pool(view(base), rois, k), out)
+
+
+def test_roipool_rejects_bad_input(cuda):
+    """the kernels take float32 maps and int32 bounds; other input raises and
+    launches nothing; bf16 maps are cast to float32 by the public
+    functions."""
+    rois, bounds = _roipool_problem(0, 2, 16, 9, 11, 3, cuda)
+    counters = (pooling.roipool_linear_fwd_cuda, pooling.roipool_linear_bwd_cuda, pooling.roipool_fwd_cuda,
+                pooling.roipool_bwd_cuda)
+    counts = [fn.launches for fn in counters]
+    with pytest.raises(ValueError, match="float32"):
+        pooling.roi_pool(torch.zeros(2, 9, 11, 5, device=cuda, dtype=torch.float64), rois, 3)
+    with pytest.raises(ValueError, match="float32"):
+        pooling.roipool_linear_bwd_cuda(torch.zeros(2, 16, 4, device=cuda, dtype=torch.bfloat16), bounds, 9, 11)
+    with pytest.raises(ValueError, match="int32"):
+        pooling.roipool_fwd_cuda(torch.zeros(2, 9, 11, 5, device=cuda), bounds.long())
+    with pytest.raises(ValueError, match="does not match"):
+        pooling.roipool_linear_fwd_cuda(torch.zeros(2, 9, 11, 5, 5, 4, device=cuda), bounds)
+    with pytest.raises(ValueError, match="does not match"):
+        pooling.roipool_bwd_cuda(torch.zeros(2, 15, 3, 3, 5, device=cuda), bounds, 9, 11)
+    assert [fn.launches for fn in counters] == counts
+    out = pooling.roi_pool_linear(torch.randn(2, 9, 11, 3, 3, 4, device=cuda, dtype=torch.bfloat16), rois, 3)
+    assert out.dtype == torch.float32 and pooling.roipool_linear_fwd_cuda.launches == counts[0] + 1
+
+
+def test_roipool_ops_opcheck(cuda):
+    """torch.library.opcheck on the four ROIPool ops with CUDA inputs: schema,
+    the fakes against the kernels, the forwards' autograd; maps and
+    cotangents of other strides."""
+    rois, bounds = _roipool_problem(1, 2, 24, 9, 11, 3, cuda)
+    for nchw in (True, False):
+        base = torch.randn((2, 5, 9, 11) if nchw else (2, 9, 11, 5), device=cuda)
+        fm = (base.permute(0, 2, 3, 1) if nchw else base).requires_grad_()
+        torch.library.opcheck(torch.ops.d2t.roipool_fwd.default, (fm, bounds))
+        g = torch.randn(2, 24, 5, 3, 3, device=cuda)
+        torch.library.opcheck(torch.ops.d2t.roipool_bwd.default,
+                              (g.permute(0, 1, 3, 4, 2) if nchw else g.reshape(2, 24, 3, 3, 5), bounds, 9, 11))
+    g = torch.randn(2, 9, 11, 3, 3, 4, device=cuda, requires_grad=True)
+    torch.library.opcheck(torch.ops.d2t.roipool_linear_fwd.default, (g, bounds))
+    torch.library.opcheck(torch.ops.d2t.roipool_linear_bwd.default,
+                          (torch.randn(2, 1, 4, device=cuda).expand(2, 24, 4), bounds, 9, 11))
+
+
+def test_training_step_launches_the_fused_roipool_kernels(cuda):
+    """a training step of a tiny configuration on the card launches one fused
+    ROIPool forward and one backward (the tracker's head and its gradient),
+    and no materialized ROIPool kernel."""
+    from detect_to_track_tpu_torch import trainer
+    from detect_to_track_tpu_torch.config import Config
+    from detect_to_track_tpu_torch.data.synthetic import SyntheticVIDManager
+    from detect_to_track_tpu_torch.models import DetectTrackModule
+
+    cfg = Config(N_CLASSES=5, INPUT_SHAPE=(64, 96), ANCHOR_AREAS=(0.05,), K=3, D_MAX=2, PRE_NMS_TOPK=None,
+                 EVAL_MAX_ROIS=72, MAX_ROIS=72, MAX_DETS=72, BATCH_SIZE=2)
+    model = DetectTrackModule.from_config(cfg, device=cuda)
+    step = trainer.make_train_step(model, cfg, trainer.make_optimizer(cfg, model), device=cuda)
+    manager = SyntheticVIDManager(n_samples=cfg.BATCH_SIZE, image_hw=cfg.INPUT_SHAPE, n_classes=cfg.N_CLASSES)
+    loader = trainer.BatchLoader(manager, cfg.BATCH_SIZE, cfg, seed=0)
+    try:
+        batch = next(iter(loader))
+    finally:
+        loader.close()
+    counters = (pooling.roipool_linear_fwd_cuda, pooling.roipool_linear_bwd_cuda, pooling.roipool_fwd_cuda,
+                pooling.roipool_bwd_cuda)
+    step(batch)  # warm-up
+    counts = [fn.launches for fn in counters]
+    losses = step(batch).vector()
+    torch.cuda.synchronize()
+    assert [fn.launches - c for fn, c in zip(counters, counts)] == [1, 1, 0, 0]
+    assert torch.isfinite(losses).all()

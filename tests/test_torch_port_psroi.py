@@ -19,7 +19,6 @@ gradients in another order than index_add_: 1e-6 of the largest magnitude
 (at most 31 terms)."""
 
 import ctypes
-import subprocess
 from pathlib import Path
 
 import jax
@@ -29,6 +28,8 @@ import torch
 
 from detect_to_track_tpu.ops import pooling as j_pool
 from detect_to_track_tpu_torch.ops import pooling
+
+from tests import torch_port_cuda_on_cpu as cuda_on_cpu
 
 CSRC = Path(pooling.__file__).parent / "csrc"
 TOL = 1e-5  # of the largest magnitude
@@ -174,131 +175,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 # ---------------------------------------------------------------- the kernels' source on CPU threads
 
-# psroi.cu's kernels compiled for the CPU, in this process's one thread:
-# a block's CUDA threads run one after another (the backward's prologue has
-# no barrier and no warp intrinsic) or as fibers (ucontext), switched in
-# round robin (the forward and the backward): __syncthreads a barrier of the
-# block's fibers, __syncwarp one of the warp's 32, __ballot_sync and
-# __shfl_xor_sync a slot a lane between two arrivals there; shared memory a
-# static 16-byte aligned buffer, __ldg a plain load, float4 a struct; built
-# without FMA contraction (the kernels have no product to contract).
-_CUDA_ON_CPU = r"""
-#include <ucontext.h>
-
-#include <functional>
-#include <memory>
-#include <vector>
-struct dim3 {
-  unsigned x = 1, y = 1, z = 1;
-  dim3() = default;
-  dim3(unsigned a, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-inline dim3 threadIdx, blockIdx, blockDim;  // the running fiber's
-struct Fiber {
-  ucontext_t ctx;
-  std::unique_ptr<char[]> stack;
-  bool done = false;
-};
-inline ucontext_t g_main;
-inline Fiber* g_cur;
-inline std::function<void()> g_body;
-inline void fiber_entry() {
-  g_body();
-  g_cur->done = true;
-}
-inline void fiber_yield() { swapcontext(&g_cur->ctx, &g_main); }
-struct Barrier {
-  int n = 0, count = 0;
-  unsigned gen = 0;
-};
-inline void barrier_wait(Barrier& b) {
-  const unsigned gen = b.gen;
-  if (++b.count == b.n) {
-    b.count = 0;
-    ++b.gen;
-    return;
-  }
-  while (b.gen == gen) fiber_yield();
-}
-inline Barrier g_block_bar, g_warp_bar[32];
-inline unsigned g_warp_slot[32][32];
-inline float g_warp_val[32][32];
-inline void __syncthreads() { barrier_wait(g_block_bar); }
-inline void __syncwarp() { barrier_wait(g_warp_bar[threadIdx.x / 32]); }
-inline unsigned __ballot_sync(unsigned, int p) {
-  const unsigned wp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  g_warp_slot[wp][lane] = p ? 1u << lane : 0u;
-  barrier_wait(g_warp_bar[wp]);
-  unsigned v = 0;
-  for (int l = 0; l < 32; ++l) v |= g_warp_slot[wp][l];
-  barrier_wait(g_warp_bar[wp]);
-  return v;
-}
-inline float __shfl_xor_sync(unsigned, float v, int mask) {
-  const unsigned wp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  g_warp_val[wp][lane] = v;
-  barrier_wait(g_warp_bar[wp]);
-  const float r = g_warp_val[wp][lane ^ mask];
-  barrier_wait(g_warp_bar[wp]);
-  return r;
-}
-inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
-struct int4 {
-  int x, y, z, w;
-};
-struct alignas(16) float4 {
-  float x, y, z, w;
-};
-template <typename T>
-inline T __ldg(const T* p) { return *p; }
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-#define __restrict__
-alignas(16) inline float g_smem[1 << 16];
-"""
-
+# psroi.cu's kernels on CPU threads (tests/torch_port_cuda_on_cpu.py): the
+# forward and the backward's kernel as fibers, the prologue too
 _CPU_LAUNCH = r"""
-template <typename F>
-void run_blocks(dim3 grid, int nth, bool fibers, F f) {
-  constexpr size_t kStack = 1 << 16;
-  blockDim = dim3(nth);
-  g_body = f;
-  std::vector<Fiber> fs(fibers ? nth : 0);
-  for (auto& fb : fs) fb.stack.reset(new char[kStack]);
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
-        blockIdx = dim3(x, y, z);
-        if (!fibers) {
-          for (int t = 0; t < nth; ++t) {
-            threadIdx = dim3(t);
-            f();
-          }
-          continue;
-        }
-        g_block_bar = Barrier{nth};
-        for (int wp = 0; wp < nth / 32; ++wp) g_warp_bar[wp] = Barrier{32};
-        for (auto& fb : fs) {
-          fb.done = false;
-          getcontext(&fb.ctx);
-          fb.ctx.uc_stack.ss_sp = fb.stack.get();
-          fb.ctx.uc_stack.ss_size = kStack;
-          fb.ctx.uc_link = &g_main;
-          makecontext(&fb.ctx, fiber_entry, 0);
-        }
-        for (int live = nth; live > 0;)
-          for (int t = 0; t < nth; ++t)
-            if (!fs[t].done) {
-              g_cur = &fs[t];
-              threadIdx = dim3(t);
-              swapcontext(&g_main, &fs[t].ctx);
-              live -= fs[t].done;
-            }
-      }
-}
 extern "C" void cpu_psroi_fwd(const float* fg, const int* bounds, float* out, int b, int r, int t, int k, int h,
                               int w, long long sb, long long sh, long long sw, long long sc) {
   run_blocks(dim3(b * r), kFwdThreads, true,
@@ -321,25 +200,9 @@ extern "C" int cpu_bwd_warps(int t, int k) { return bwd_warps(t, k); }
 
 
 def _kernels_on_cpu(out):
-    """ops/csrc/psroi.cu built for CPU threads into `out`."""
-    src = (CSRC / "psroi.cu").read_text()
-    edits = [
-        ("#include <cuda_runtime.h>\n", _CUDA_ON_CPU),
-        ("extern __shared__ float smem[];", "float* smem = g_smem;"),
-        ("extern __shared__ int bd[];", "int* bd = reinterpret_cast<int*>(g_smem);"),
-        ("namespace {", ""),
-        ("}  // namespace", ""),
-    ]
-    for old, new in edits:
-        assert old in src, f"psroi.cu changed: update this emulation ({old.strip()!r} not found)"
-        src = src.replace(old, new)
-    src = src[: src.index('extern "C" {')] + _CPU_LAUNCH
-    (out / "psroi_cpu.cpp").write_text(src)
-    cmd = ["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-o", str(out / "lib.so"),
-           str(out / "psroi_cpu.cpp")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr
-    lib = ctypes.CDLL(str(out / "lib.so"))
+    """ops/csrc/psroi.cu (and its header bin_pool.cuh) built for CPU threads
+    into `out`."""
+    lib = cuda_on_cpu.build("psroi.cu", _CPU_LAUNCH, out)
     i64, i32, ptr = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
     lib.cpu_psroi_fwd.argtypes = [ptr] * 3 + [i32] * 6 + [i64] * 4
     lib.cpu_psroi_bwd.argtypes = [ptr] + [i64] * 5 + [ptr] * 4 + [i32] * 7

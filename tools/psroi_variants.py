@@ -1,7 +1,7 @@
 """time variants of PSROIPool's kernels (ops/csrc/psroi.cu) on the card.
 
-Each variant is the source with some of its tuning constants replaced
-(`constexpr int kName = value;`), built with nvcc into
+Each variant is the source (its header bin_pool.cuh inlined) with some of
+its tuning constants replaced (`constexpr int kName = value;`), built with nvcc into
 build/psroi_variants/ and called through ctypes at the `psroi` phase's
 shapes (8 frames, 38x75, 256 proposal-like rois, k 7; the class head's 31
 and the box head's 4 targets; contiguous NHWC bin-major maps). For each
@@ -40,11 +40,13 @@ VARIANTS = {
 
 
 def source(constants: dict) -> str:
-    src = (ROOT / "detect_to_track_tpu_torch" / "ops" / "csrc" / "psroi.cu").read_text()
+    """psroi.cu with its header bin_pool.cuh inlined, the constants replaced."""
+    csrc = ROOT / "detect_to_track_tpu_torch" / "ops" / "csrc"
+    src = (csrc / "psroi.cu").read_text().replace('#include "bin_pool.cuh"\n', (csrc / "bin_pool.cuh").read_text())
     for name, value in constants.items():
         src, n = re.subn(rf"(constexpr int {name} = )\d+;", rf"\g<1>{value};", src)
         if n != 1:
-            raise SystemExit(f"psroi.cu has no constant {name}")
+            raise SystemExit(f"bin_pool.cuh has no constant {name}")
     return src
 
 
